@@ -1,17 +1,16 @@
-"""aux_ssm_tpu — TPU-native auxiliary MCMC / particle-Gibbs samplers for
-generalised Feynman–Kac state-space models.
+"""aux_ssm_tpu — auxiliary MCMC / particle-Gibbs samplers for generalised
+Feynman–Kac state-space models, in JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas framework with the capability surface of the
-reference `aux_samplers` package (Corenflos & Särkkä, arXiv:2303.00301;
-reference layout: aux_samplers/__init__.py:1-4), redesigned TPU-first:
+A from-scratch framework with the capability surface of the reference
+`aux_samplers` package (Corenflos & Särkkä, arXiv:2303.00301; reference
+layout: aux_samplers/__init__.py:1-4), with:
 
 - mask-based (fully finite) missing-data handling — no infs, no `lax.cond`
-  branches inside scans, safe under f32/bf16;
-- parallel-in-time Kalman filtering/sampling as associative scans with
-  optional fused Pallas operators;
+  branches inside scans, safe under f32;
+- parallel-in-time Kalman filtering/sampling as associative scans;
 - first-class device-mesh sharding (chains / particles / batch axes) with
   collective resampling and adaptation reductions;
-- one typed config system, orbax checkpointing, online statistics.
+- one typed config system, `.npz` checkpointing, online statistics.
 
 Public surface mirrors the reference's top level (aux_samplers/__init__.py:1-4):
 `SamplerState`, linearisation rules (`extended`, `cubature`, `gauss_hermite`),

@@ -8,10 +8,35 @@ MCMC schedule (RunConfig, see experiments.runner) + sampler style + mesh.
 config from CLI-style overrides so experiment scripts stay one-liners.
 """
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from .experiments.runner import RunConfig
+
+# The persistent compile cache's default home: a fixed directory inside the
+# checkout (listed in .gitignore). The path is part of each entry's key, so
+# it never depends on a temporary name, a process id or the time.
+DEFAULT_COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def compile_cache_dir():
+    """Where compiled programs persist: `JAX_COMPILATION_CACHE_DIR` when it
+    is set (JAX reads it itself), else `DEFAULT_COMPILE_CACHE_DIR`."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or \
+        DEFAULT_COMPILE_CACHE_DIR
+
+
+def enable_compile_cache():
+    """Turn on JAX's persistent compile cache. The one place the cache is
+    configured: every entry point (experiment drivers through
+    `BackendConfig.apply`, `bench.py`, `chip_smoke.py`) calls this."""
+    import jax
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir",
+                          DEFAULT_COMPILE_CACHE_DIR)
+    return compile_cache_dir()
 
 
 @dataclass(frozen=True)
@@ -19,18 +44,18 @@ class BackendConfig:
     """Global JAX/XLA settings (reference flags: --precision, --gpu,
     --debug, --debug-nans)."""
     precision: str = "single"          # 'single' | 'double'
-    platform: Optional[str] = None     # None = default; 'cpu' | 'tpu'
+    platform: Optional[str] = None     # None = default; 'cpu' | 'gpu'
     debug: bool = False                # disable jit
     debug_nans: bool = False
-    # TPU matmuls default to bf16 inputs, which degrades the XLA-path
-    # filter algebra to ~1e-3 relative error (measured: the Pallas lane
-    # kernels, which never touch the MXU for the d x d solves, sit at
-    # ~2e-7). 'highest' restores true-f32 matmuls; the hot paths are
-    # Pallas so the throughput cost is marginal.
+    # On the GPU, f32 matmuls run in TF32 by default (about three decimal
+    # digits). That rounding enters the filter algebra and the proposal
+    # log-densities, and it does not cancel in the MH ratio. 'highest'
+    # keeps f32 products in f32.
     matmul_precision: str = "highest"  # 'default' | 'high' | 'highest'
 
     def apply(self):
         import jax
+        enable_compile_cache()
         jax.config.update("jax_enable_x64", self.precision == "double")
         if self.matmul_precision != "default":
             jax.config.update("jax_default_matmul_precision",

@@ -2,7 +2,7 @@
 experiment.py` capability): grid over (rho, r2), batched chains, ESS and
 moment accuracy vs the closed-form conditionals.
 
-TPU-first design: the reference vmaps 8 chains per grid cell but still
+Design: the reference vmaps 8 chains per grid cell but still
 recompiles per cell (`experiment.py:76-77,189-196`); here the WHOLE sweep —
 every (rho, r2) cell times every chain — is one vmapped kernel inside one
 compiled program. The model builders take traced `rho`/`r2`, so the grid is
@@ -169,8 +169,11 @@ def main(argv=None):
           f"({len(rows)} cells x {args.n_chains} chains, one program)")
 
     if args.out:
-        import pandas as pd
-        pd.DataFrame(rows).to_csv(args.out, index=False)
+        import csv
+        with open(args.out, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0]))
+            w.writeheader()
+            w.writerows(rows)
         print(f"saved grid results to {args.out}")
     if args.figures_dir:
         from .figures import rare_event_heatmaps

@@ -9,6 +9,7 @@ Feynman–Kac model (M0, G0, Mt, Gt) targeted by the inner cSMC sweep.
 import jax
 import jax.numpy as jnp
 
+from .base import f32_matmuls
 from .csmc import get_kernel as get_csmc_kernel
 from .csmc_base import CSMCState, Dynamics
 
@@ -44,6 +45,7 @@ def get_kernel(factory, N: int, backward: bool = False, Pt: Dynamics = None,
         from ..ops import resampling as resampling_mod
         resampling = resampling_mod.get(resampling)
 
+    @f32_matmuls
     def kernel(key, state, delta):
         x = state.x
         T = x.shape[0]

@@ -66,8 +66,8 @@ class Dynamics(abc.ABC):
     mapping standard-normal noise `eps` (same shape as `x_t`) to a sample —
     any location-scale family can. When present, the cSMC forward pass
     hoists all proposal RNG out of its `lax.scan` (one batched (T, N, d)
-    normal draw instead of a per-step threefry chain), which dominates the
-    step cost on TPU for small N.
+    normal draw instead of a per-step threefry chain), which would otherwise
+    dominate the step cost at small N.
     """
     params: Optional[chex.ArrayTree] = None
 
@@ -85,8 +85,8 @@ class Dynamics(abc.ABC):
     # factorising logpdf(x_next[j] | x_prev[i]) over ALL (i, j) pairs as
     # row_bias[i] + col_bias[j] + row_feat[i] . col_feat[j]. Every Gaussian
     # transition has this form (the quadratic cross-term is rank-d); it lets
-    # the parallel-in-time stitching step run as blockwise MXU matmuls
-    # instead of an N^2 nested vmap (see `ops/pallas/stitching.py`). Use
+    # the parallel-in-time stitching step run as blockwise matmuls
+    # instead of an N^2 nested vmap (see `ops/stitching.py`). Use
     # `diag_gaussian_pair_factors` for diagonal-covariance dynamics.
 
 

@@ -38,6 +38,7 @@ import chex
 import jax
 import jax.numpy as jnp
 
+from .base import f32_matmuls
 from .csmc_aux import get_kernel as get_aux_kernel
 from .csmc_base import CSMCState, Distribution, UnivariatePotential, Dynamics, Potential
 from .pit import get_kernel as get_pit_kernel
@@ -106,6 +107,7 @@ def _pit_path(M0, G0, Mt, Gt, N, gradient):
     Distributions; the gradient correction enters through the importance
     distribution Qt = N(u, s^2 I) rather than through the potentials."""
 
+    @f32_matmuls
     def kernel(key, state, delta):
         x = state.x
         T = x.shape[0]
@@ -176,8 +178,8 @@ class IndependentDynamics(Dynamics):
     interface (the previous state is ignored); params = (loc_t, scale_t).
 
     `independent = True` advertises the x_prev-independence that lets the
-    cSMC forward pass run as the fused index/weight recursion
-    (`ops/pallas/csmc_fwd.py`): particle values are then invariant to
+    cSMC forward pass run as the index/weight recursion
+    (`ops/csmc_sweeps.factor_scan`): particle values are then invariant to
     resampling, so the whole sweep needs no model evaluation in the loop."""
     independent = True
 

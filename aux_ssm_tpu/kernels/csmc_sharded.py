@@ -6,22 +6,26 @@ axis. All per-particle model math (proposal sampling, potentials) stays
 chip-local; the two global operations — weight normalisation and the
 conditional-resampling gather — are expressed as ordinary jnp ops on arrays
 carrying a NamedSharding constraint, which GSPMD lowers to psum /
-all-gather+dynamic-slice over ICI. The categorical indices are computed from
-replicated normalised weights, so the draw is bitwise identical to the
-single-chip kernel with the same key.
+all-gather+dynamic-slice. The categorical indices are computed from
+replicated normalised weights, so the draw follows the single-device
+kernel's key stream.
 
 The backward passes run sharded too (`shard_map` over the particle axis):
-the stored (T, N, d) trajectory array never materialises on one chip — per
-step only the (N,) weight row is all-gathered (so the categorical draw is
-bitwise identical to the single-chip kernel) and the one chosen particle row
-travels by masked psum. Peak per-chip trajectory footprint is T·N·d/S.
+the stored (T, N, d) trajectory array never materialises on one device —
+per step only the (N,) weight row is all-gathered (so the categorical draw
+runs on the full-order weight vector, as on one device) and the one chosen
+particle row travels by masked psum. Peak per-device trajectory footprint
+is T·N·d/S.
 """
 import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from .csmc import forward_pass, backward_scanning_pass, backward_sampling_pass
+from .csmc import (forward_pass, backward_scanning_pass,
+                   backward_sampling_pass, factor_backward_pass,
+                   _use_factor_backward)
+from .base import f32_matmuls
 from .csmc_base import CSMCState, Distribution, UnivariatePotential, Dynamics, Potential
 from ..ops import resampling as resampling_mod
 from ..ops.logspace import normalize
@@ -45,32 +49,27 @@ def get_sharded_kernel(M0: Distribution, G0: UnivariatePotential, Mt: Dynamics,
     particle_sharding = NamedSharding(mesh, P(PARTICLES))
 
     if n_shards == 1:
-        # A 1-device particles mesh is plain single-chip execution; passing
-        # no constraint lets `forward_pass` take its fused Pallas paths
-        # (which are disabled under sharding constraints).
+        # A 1-device particles mesh is plain single-device execution;
+        # passing no constraint lets `forward_pass` take its specialised
+        # sweeps (which are disabled under sharding constraints).
         constrain = None
     else:
         def constrain(z):
             return jax.lax.with_sharding_constraint(z, particle_sharding)
 
+    @f32_matmuls
     def kernel(key, state):
         key_fwd, key_bwd = jax.random.split(key)
         w_T, xs, log_ws, ancestors = forward_pass(
             key_fwd, state.x, M0, G0, Mt, Gt, N, resample, constrain=constrain
         )
         if n_shards == 1:
-            if backward:
-                # Same dispatch as csmc.get_kernel: a 1-device particles mesh
-                # should reach the fused Pallas backward pass too.
-                from .csmc import _use_fused_backward, _fused_backward_pass
-                bwd_mode = _use_fused_backward(Pt, N)
-                if bwd_mode:
-                    x, picked = _fused_backward_pass(
-                        key_bwd, Pt, w_T, xs, log_ws,
-                        on_tpu=bwd_mode == "pallas")
-                else:
-                    x, picked = backward_sampling_pass(key_bwd, Pt, w_T, xs,
-                                                       log_ws)
+            if backward and _use_factor_backward(Pt):
+                # Same dispatch as csmc.get_kernel.
+                x, picked = factor_backward_pass(key_bwd, Pt, w_T, xs, log_ws)
+            elif backward:
+                x, picked = backward_sampling_pass(key_bwd, Pt, w_T, xs,
+                                                   log_ws)
             else:
                 x, picked = backward_scanning_pass(key_bwd, w_T, xs, ancestors)
         elif backward:
@@ -102,8 +101,8 @@ def sharded_backward_sampling_pass(mesh, key, Pt: Dynamics, w_T, xs, log_ws,
     """Whiteley backward sampling with the particle axis of `xs`/`log_ws`
     sharded over `axis`. Per step, the (N,) smoothing-weight row is
     all-gathered (bytes on the wire) so the categorical draw runs on the
-    exact full-order weight vector — bitwise identical to the single-chip
-    `backward_sampling_pass` for the same key — while the (T, N, d)
+    exact full-order weight vector — the single-device
+    `backward_sampling_pass`'s draw for the same key — while the (T, N, d)
     trajectory block stays sharded; the chosen row travels by masked psum."""
     T = log_ws.shape[0]
     us = jax.random.uniform(key, (T,), dtype=log_ws.dtype)
@@ -142,7 +141,7 @@ def sharded_backward_scanning_pass(mesh, key, w_T, xs, ancestors,
     """Genealogy trace with `xs` (T, N, d) and `ancestors` (T-1, N) sharded
     over `axis`: a sequential O(T) pointer chase where each lookup moves one
     int / one row by masked psum. Integer arithmetic — picks are bitwise
-    identical to the single-chip `backward_scanning_pass`."""
+    identical to the single-device `backward_scanning_pass`."""
 
     def body(key_, w_T_, xs_l, anc_l):
         shard = jax.lax.axis_index(axis)

@@ -59,12 +59,11 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         sequential scans.
     matmul_precision : str | None
         Matmul precision forced inside the kernel step (default "highest").
-        TPUs lower f32 matmuls to bf16 passes by default; the resulting
-        O(1e-3) relative error in the forward/reverse proposal log-densities
-        does NOT cancel in the MH ratio and can collapse acceptance outright
-        (measured on v5e: a second-order factory at T=1024 d=16 accepts at
-        1.00 with true-f32 matmuls and 0.14 with the bf16 default, and delta
-        adaptation then spirals to zero). None leaves the ambient precision.
+        On the GPU, f32 matmuls run in TF32 by default, which keeps about
+        three decimal digits. The rounding enters the forward and reverse
+        proposal log-densities separately, so it does NOT cancel in the MH
+        ratio; "highest" keeps the products in f32. None leaves the ambient
+        precision.
 
     Returns
     -------

@@ -1,9 +1,9 @@
 """Cross-chip parallel-in-time cSMC: the dSMC tree sharded over a `time`
 mesh axis.
 
-SURVEY §2.4 P3's TPU-native column (reference `pit/dc_map.py:108-121` is
-single-device): lower tree levels run chip-local under `shard_map`;
-upper-level stitching crosses chips through collectives.
+SURVEY §2.4 P3 (reference `pit/dc_map.py:108-121` is single-device): lower
+tree levels run device-local under `shard_map`; upper-level stitching
+crosses devices through collectives.
 
 Decomposition (enabled by the index-composition engine in `pit.py`):
 
@@ -15,7 +15,7 @@ Decomposition (enabled by the index-composition engine in `pit.py`):
   2. *Upper phase* (replicated, tiny): the C chunk-boundary particle sets
      (C x N x d floats — KBs) form a C-step super-tree; `run_stitch_tree`
      runs it verbatim with chunk-start keys/params. GSPMD turns the
-     boundary reads into an all-gather over ICI.
+     boundary reads into an all-gather.
   3. *Resolution*: the root pair resolves through the upper selections to
      one index per chunk (replicated, O(C log C)), then each chip resolves
      its chunk genealogy locally and gathers its trajectory slice.
@@ -33,6 +33,7 @@ from jax.scipy.special import logsumexp
 from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
+from .base import f32_matmuls
 from .csmc_base import CSMCState
 from .pit import (run_stitch_tree, resolve_genealogy, _root_init,
                   _pit_csmc as _pit_csmc_single)
@@ -48,7 +49,7 @@ def get_particle_sharded_kernel(Mt, G0, Gt, N, mesh, Qt=None, axis=PARTICLES):
     Decomposition: each chip computes the per-128-column block log-masses
     for its own whole-block column slice of every node (`block_masses` —
     the O(N^2) hot pass), the (N, nb) masses are all-gathered (O(N) floats
-    per node, rides ICI), and the two-stage categorical draws run replicated
+    per node), and the two-stage categorical draws run replicated
     with the single-device seed/pair_offset counter stream. Because each
     block's mass depends only on that block's columns, the sharded kernel is
     BIT-IDENTICAL to the single-device engine with blocked stitching
@@ -67,6 +68,7 @@ def get_particle_sharded_kernel(Mt, G0, Gt, N, mesh, Qt=None, axis=PARTICLES):
 
     score_mesh = None if S == 1 else mesh
 
+    @f32_matmuls
     def kernel(key, state):
         x, picked = _pit_csmc_single(key, state.x, Mt, G0, Gt, N, Qt,
                                      score_mesh=score_mesh, score_axis=axis)
@@ -99,6 +101,7 @@ def get_sharded_kernel(Mt, G0, Gt, N, mesh, Qt=None, axis=TIME):
         return _single_kernel(Mt, G0, Gt, N, Qt=Qt)
     spec_t = P(axis)
 
+    @f32_matmuls
     def kernel(key, state):
         x, picked = _sharded_pit(key, state.x, Mt, G0, Gt, N, Qt, mesh, axis, C)
         return CSMCState(x=x, updated=picked != 0)

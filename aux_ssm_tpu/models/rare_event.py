@@ -123,11 +123,10 @@ def get_feynman_kac(y, rho, r2, T):
         def logpdf_factors(self, x_prev, x_next, _t):
             return diag_gaussian_pair_factors(rho * x_prev, x_next, sig_x)
 
-        # (1, N) lane-row callables for the fused forward sweep
-        # (`csmc_fwd.lane_forward_scan`). rho/sig ride the per-step params —
-        # NOT the Python closure — because the rare-event grid driver builds
-        # this model under a vmap over (rho, r2) cells: a closed-over tracer
-        # inside a Pallas kernel body is invisible to the batching rule.
+        # (1, N) lane-row callables for the forward sweep
+        # (`ops/csmc_sweeps.lane_scan`). rho/sig ride the per-step params
+        # (the rare-event grid driver builds this model under a vmap over
+        # (rho, r2) cells).
         def lane_propagate(self, eps, x_prev, p):
             return p["rho"] * x_prev + p["sig"] * eps
 
@@ -209,10 +208,8 @@ def get_guided_csmc_kernel(y, rho, r2, T, n_particles, backward=True,
 
         def guided_mu(x_pred, p):
             """Proposal mean from per-step params ONLY (no closure values):
-            shared by the XLA methods and the Pallas lane callables — the
-            grid driver builds this model under a vmap over (rho, r2) cells,
-            and a closed-over tracer inside a Pallas kernel body is invisible
-            to the batching rule."""
+            shared by the generic methods and the lane callables — the grid
+            driver builds this model under a vmap over (rho, r2) cells."""
             g = (p["t"] == T - 1) * (p["y"] - x_pred) / p["r2"]
             su = p["u"] + gradient * p["scale"] ** 2 * g
             return x_pred + p["K"] * (su - x_pred)
@@ -230,7 +227,7 @@ def get_guided_csmc_kernel(y, rho, r2, T, n_particles, backward=True,
                 mu = guided_mu(p["rho"] * x_t[..., 0], p)
                 return norm.logpdf(x_next[..., 0], mu, p["sig_p"])
 
-            # (1, N) lane-row callables (fused forward sweep).
+            # (1, N) lane-row callables (`ops/csmc_sweeps.lane_scan`).
             def lane_propagate(self, eps, x_prev, p):
                 return guided_mu(p["rho"] * x_prev, p) + p["sig_p"] * eps
 

@@ -12,7 +12,7 @@ The dynamics are expressed in the *batched scalar* LGSSM layout
 (T, B=d^2, 1, 1) so the Kalman machinery runs d^2 independent scalar filters
 in one vectorized pass (reference `spatial/model.py:103-112`). The Student-t
 precision is applied as a 2-D convolution stencil (see `t_distribution`),
-not a sparse matmul — the TPU-native choice.
+not a sparse matmul.
 """
 import chex
 import jax
@@ -251,9 +251,9 @@ def get_guided_csmc_kernel(ys, sigma_x, nu, tau, r_y, d, n_particles,
             out -= jnp.sum(norm.logpdf(x, mu, lam), -1)
             return out
 
-    # (B, N)-block forms for the fused lane sweep: everything elementwise
+    # (B, N)-block forms for the block-lane sweep: everything elementwise
     # except the t-potential quad form, applied via the DENSE precision (a
-    # (B, B) matmul — the conv-stencil apply is not kernel-expressible).
+    # (B, B) matmul on the (B, N) block).
     prec_dense = jnp.asarray(make_precision_dense(tau, r_y, d), jnp.float32)
 
     def _block_moments(x_prev, u, scale, y, P):

@@ -269,15 +269,13 @@ def make_guided_factory(ys, nu, phi, tau, rho, gradient=False):
     #     Lam_t = V diag(lam s_t^2 / (lam + s_t^2)) V^T
     # This keeps the MCMC while-body free of linalg custom calls (Cholesky /
     # triangular inversion), which XLA cannot hoist out of loops even when
-    # their inputs are loop-invariant — profiled at >60% of the guided step
+    # their inputs are loop-invariant
     # (reference auxiliary_guided_csmc.py:143-156 runs the solves per step).
     # Sampling uses the symmetric square root V diag(sqrt) V^T: same law as
     # a Cholesky factor, matmul-only.
     lamQ, VQ = jnp.linalg.eigh(Q)
     lam0, V0 = jnp.linalg.eigh(P0)
     inv_sqrt_lamQ = 1.0 / jnp.sqrt(lamQ)
-    # Python float on purpose: scalar constants may enter Pallas kernels as
-    # literals, while captured ARRAY constants are rejected.
     half_logdet_Q = float(0.5 * jnp.sum(jnp.log(lamQ)))
     _HALF_D_LOG2PI = 0.5 * d * math.log(2.0 * math.pi)
 
@@ -347,15 +345,15 @@ def make_guided_factory(ys, nu, phi, tau, rho, gradient=False):
     FR = F.T @ VQ
     bR = b @ VQ
 
-    # Column-layout constants for the fused (d, N)-block lane sweep
-    # (`ops/pallas/csmc_fwd.block_lane_forward_scan`): state as (d, N).
+    # Column-layout constants for the (d, N)-block sweep
+    # (`ops/csmc_sweeps.block_lane_scan`): state as (d, N).
     FRT = FR.T
     VQT = VQ.T
     bR_col = bR[:, None]
     isl_col = inv_sqrt_lamQ[:, None]
 
     def _mm(A, X):
-        # Exact-f32 (d, d) @ (d, N) — traced into the Mosaic kernel.
+        # Exact-f32 (d, d) @ (d, N).
         return jax.lax.dot_general(A, X, (((1,), (0,)), ((), ())),
                                    preferred_element_type=jnp.float32,
                                    precision=jax.lax.Precision.HIGHEST)
@@ -372,10 +370,9 @@ def make_guided_factory(ys, nu, phi, tau, rho, gradient=False):
             return _unrot(zn, VQ)
 
         def block_propagate(self, eps, x_prev, params, consts):
-            """(d, N)-block form of sample_from_noise for the fused lane
+            """(d, N)-block form of sample_from_noise for the block-lane
             sweep; params arrive as (L, N) lane-broadcast blocks, constants
-            through the `consts` pytree (Pallas kernels may not capture
-            array constants)."""
+            through the `consts` pytree."""
             _u, _scale, _y, rotS, g, sqrtL, _inv, _hld = params
             zp = _mm(consts["FRT"], x_prev) + consts["bR"]
             zn = zp + g * (rotS - zp) + sqrtL * eps
@@ -397,7 +394,7 @@ def make_guided_factory(ys, nu, phi, tau, rho, gradient=False):
             return out
 
         def block_logw(self, x_next, x_prev, params, consts):
-            """(d, N)-block form of __call__ for the fused lane sweep;
+            """(d, N)-block form of __call__ for the block-lane sweep;
             returns a (1, N) log-weight row."""
             u, scale, y, rotS, g, _sqrtL, inv_sqrtL, hld = params
             zp = _mm(consts["FRT"], x_prev) + consts["bR"]

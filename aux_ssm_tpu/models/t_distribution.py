@@ -1,10 +1,10 @@
-"""Multivariate Student-t with banded grid precision — TPU-native apply.
+"""Multivariate Student-t with banded grid precision, applied as a stencil.
 
 Capability parity with `examples/spatial/t_distribution.py:10-104` —
 independent implementation. The reference stores the precision as a sparse
-BCOO and multiplies sparsely (poor fit for the TPU); here the banded
+BCOO and multiplies sparsely; here the banded
 precision of the d x d grid is applied as a dense 2-D convolution with the
-equivalent stencil (MXU/VPU-friendly, fully batched). A dense-matrix path is
+equivalent stencil (fully batched). A dense-matrix path is
 kept for generic precisions.
 """
 from functools import partial

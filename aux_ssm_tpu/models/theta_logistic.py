@@ -75,8 +75,8 @@ def get_feynman_kac(ys, **params):
             mu = drift(x_prev, p["tau0"], p["tau1"], p["tau2"])
             return diag_gaussian_pair_factors(mu, x_next, p["sig_x"])
 
-        # (1, N) lane-row callables: the bootstrap forward sweep runs the
-        # whole model inside one Pallas launch (`csmc_fwd.lane_forward_scan`).
+        # (1, N) lane-row callables for the bootstrap forward sweep
+        # (`ops/csmc_sweeps.lane_scan`).
         def lane_propagate(self, eps, x_prev, _p):
             return drift(x_prev, p["tau0"], p["tau1"], p["tau2"]) \
                 + p["sig_x"] * eps

@@ -2,8 +2,9 @@
 with a vectorised NumPy fallback.
 
 Replaces the reference's numba-JIT loops (`examples/spatial/model.py:53-88`).
-The shared library is compiled on first use with g++ and cached next to the
-source; if no toolchain is available the NumPy path is used silently.
+The shared library is not committed: it is compiled on first use with g++
+and cached next to the source (`native/libprecision.so`, listed in
+.gitignore); if no toolchain is available the NumPy path is used silently.
 """
 import ctypes
 import os
@@ -30,10 +31,14 @@ def _load():
         so = os.path.abspath(_SO)
         try:
             if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+                # Build beside the target and rename, so a process that
+                # races this one never loads a half-written library.
+                tmp = f"{so}.{os.getpid()}.tmp"
                 subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", so, src],
+                    ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, src],
                     check=True, capture_output=True,
                 )
+                os.replace(tmp, so)
             lib = ctypes.CDLL(so)
             lib.precision_count.restype = ctypes.c_int64
             lib.precision_count.argtypes = [ctypes.c_double, ctypes.c_double, ctypes.c_int64]
@@ -99,8 +104,8 @@ def precision_stencil(tau, r_y, dtype=np.float64):
     """The (2r+1) x (2r+1) convolution stencil equivalent to the precision:
     applying the precision to a grid-shaped field is a 2-D convolution with
     this kernel (up to boundary clipping, which conv's zero padding matches
-    exactly since out-of-grid entries are absent from the matrix). This is
-    the TPU-native representation — dense conv instead of sparse matmul."""
+    exactly since out-of-grid entries are absent from the matrix): a dense
+    conv instead of a sparse matmul."""
     r = int(r_y)
     di = np.abs(np.arange(-r, r + 1))
     D = di[:, None] + di[None, :]

@@ -1,10 +1,8 @@
 """Tiny helpers for explicitly-batched small-matrix algebra.
 
-All hot-path operators use these instead of `jnp.vectorize` gufunc wrappers:
-on TPU, gufunc-vectorised operators inside `associative_scan` lower ~300x
-slower than the same math written directly on (..., d, d) arrays (measured:
-19.9ms vs 0.06ms for the T=1024, d=16 filter scan). Plain broadcasting ops
-keep the same (T, ...) / (T, B, ...) shape-polymorphism the reference gets
+All hot-path operators use these instead of `jnp.vectorize` gufunc wrappers,
+so XLA sees plain batched algebra on (..., d, d) arrays inside
+`associative_scan`. Plain broadcasting ops keep the same (T, ...) / (T, B, ...) shape-polymorphism the reference gets
 from gufunc signatures (`filtering.py:83,163`), at native XLA speed.
 """
 import jax.numpy as jnp

@@ -1,9 +1,8 @@
-"""Robust Cholesky factorization for TPU.
+"""Robust Cholesky factorization.
 
-The reference guards GPU Cholesky by projecting onto the PSD cone with an SVD
-(`_primitives/math/utils.py:42-66`). On TPU we avoid the SVD (slow, not
-MXU-friendly); instead we symmetrize and add a relative jitter on the
-diagonal, which is the standard production approach and keeps the op fully
+The reference guards its Cholesky by projecting onto the PSD cone with an SVD
+(`_primitives/math/utils.py:42-66`). Here the SVD is avoided; instead we
+symmetrize and add a relative jitter on the diagonal, which is the standard production approach and keeps the op fully
 batched/fusable.
 """
 import jax.numpy as jnp

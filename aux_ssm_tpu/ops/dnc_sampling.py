@@ -3,7 +3,7 @@
 Capability parity with `_primitives/kalman/dnc_sampling.py:17-187` —
 independent implementation. Kept, as in the reference, as a proof-of-concept
 alternative to the associative-scan sampler (`ops/sampling.py`), which is the
-production path on TPU.
+production path.
 
 Idea: the backward conditionals x_t | x_{t+1} of an LGSSM are affine-Gaussian
 maps (E, g, L) with  x_t | x_{t+1} ~ N(E x_{t+1} + g, L). Composing two maps

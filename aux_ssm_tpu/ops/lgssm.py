@@ -24,7 +24,7 @@ of the observation model: rows of H / entries of c are zeroed, R is restricted
 to the observed block with a unit diagonal on missing components, and the
 missing innovations are zeroed. This is algebraically identical to deleting
 the missing rows, but keeps shapes static and all values finite — safe under
-f32/bf16 on TPU and free of `lax.cond` branches.
+f32 and free of `lax.cond` branches.
 """
 import math
 
@@ -134,23 +134,7 @@ def prior_logpdf(xs, lgssm):
 
 
 def trajectory_logdensity(ys, xs, lgssm):
-    """log p(x_{0:T}) + log p(y_{0:T} | x_{0:T}) — the unnormalised joint.
-    Uses a fused Pallas kernel on TPU for the t >= 1 steps."""
-    from .filtering import use_pallas
-    m0, P0, Fs, Qs, bs, Hs, Rs, cs = lgssm
-    if use_pallas(bs, cs):
-        from .pallas.kalman_fused import fused_logdensity_steps
-        steps = fused_logdensity_steps(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:],
-                                       ys[1:], xs[:-1], xs[1:])
-        if m0.shape[-1] == 1:
-            var0 = P0[..., 0, 0]
-            d0 = xs[0, ..., 0] - m0[..., 0]
-            first = -0.5 * (d0 * d0 / var0 + jnp.log(var0) + _LOG_2PI)
-        else:
-            first = mvn_logpdf(xs[0], m0, jnp.linalg.cholesky(P0))
-        pred0 = jnp.einsum("...ij,...j->...i", Hs[0], xs[0]) + cs[0]
-        first = first + _masked_step_logpdf(ys[0], pred0, Rs[0])
-        return jnp.sum(first) + jnp.sum(steps)
+    """log p(x_{0:T}) + log p(y_{0:T} | x_{0:T}) — the unnormalised joint."""
     return log_likelihood(ys, xs, lgssm) + prior_logpdf(xs, lgssm)
 
 
@@ -167,13 +151,12 @@ def make_target_logpdf(ys, lgssm):
     Why this exists: XLA's loop-invariant code motion does not hoist custom
     calls (Cholesky, triangular block inversion) out of `while` bodies, so a
     target density written as `prior_logpdf + log_likelihood` refactorises
-    its CONSTANT covariances on every MCMC step — measured at 32% of the
-    whole T=1024 d=16 auxiliary-Kalman step on v5e. Here every
+    its CONSTANT covariances on every MCMC step. Here every
     trajectory-independent factor (masked-observation Cholesky, dynamics
     Cholesky, their triangular inverses, log-determinants) is computed once
     at closure-build time; the per-step work is pure matmul/elementwise.
 
-    Whitening uses the precomputed triangular inverse (one MXU matmul)
+    Whitening uses the precomputed triangular inverse (one matmul)
     instead of a per-step triangular solve; with the kernel's "highest"
     matmul precision the difference from the solve is O(cond(L) * eps) and
     far below MH-ratio resolution. Requires finite covariances (missing data

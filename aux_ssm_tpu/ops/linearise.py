@@ -23,7 +23,7 @@ from jax.scipy.linalg import cho_solve
 def extended(mean, cov, params, x_star, _P_star=None):
     """First-order (Taylor) linearisation at x*.
 
-    Chooses jacfwd/jacrev by aspect ratio of the Jacobian — on TPU both lower
+    Chooses jacfwd/jacrev by aspect ratio of the Jacobian — both lower
     to batched matmuls, but forward mode avoids transposes for tall maps.
     """
     b = mean(x_star, params)

@@ -20,7 +20,7 @@ def log1mexp(x):
     """
     x = jnp.asarray(x)
     # Evaluate both branches on safe inputs and select — cheap, branch-free
-    # (TPU-friendly: no lax.cond inside vectorized code).
+    # (no lax.cond inside vectorized code).
     small = x < _LOG_HALF
     safe_lo = jnp.where(small, x, _LOG_HALF)
     safe_hi = jnp.where(small, _LOG_HALF, x)

@@ -2,8 +2,8 @@
 
 Capability parity with `_primitives/math/mvn/base.py` (logpdf:15-58, rvs:61-75,
 get_optimal_covariance:78-105, tril_log_det:108-128) — independent
-implementation with dtype-aware saturation so it is correct under f32/bf16 on
-TPU (the reference clips at 1e500, which only makes sense in f64).
+implementation with dtype-aware saturation so it is correct under f32 (the
+reference clips at 1e500, which only makes sense in f64).
 
 Semantics kept from the reference because they are load-bearing for
 missing-data handling upstream: non-finite rows of `chol` are treated as
@@ -44,10 +44,8 @@ def logpdf(x, m, chol):
     if chol.ndim == 2 and x.ndim >= 2:
         # Unbatched factor, batched points: ONE triangular solve against the
         # stacked right-hand sides. Broadcasting the factor to the batch
-        # instead makes the TPU lowering re-invert the SAME (d, d) diagonal
-        # blocks once per batch element (profiled: a (25,1,30,30)
-        # InvertDiagBlocks custom call per logpdf — O(N d^3) — dominating the
-        # guided-cSMC step at 57us per call vs 2.3us unbatched).
+        # instead would re-factor the SAME (d, d) triangle once per batch
+        # element — O(N d^3) work per logpdf instead of O(d^3).
         diag = jnp.diagonal(chol)
         finite = jnp.isfinite(diag)
         dim = jnp.sum(finite, axis=-1)

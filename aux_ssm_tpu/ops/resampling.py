@@ -5,7 +5,7 @@ systematic :40-86) — independent implementation. Both keep index 0 pinned to
 0 (the conditional/reference particle), which is the property particle-Gibbs
 correctness rests on.
 
-`sharded_multinomial` is the TPU multi-chip variant: weights live sharded
+`sharded_multinomial` is the multi-device variant: weights live sharded
 over a `particles` mesh axis; the categorical draw happens on replicated
 all-gathered weights (N floats — tiny) so every shard computes identical
 indices from the same key, then gathers are resolved collectively by the

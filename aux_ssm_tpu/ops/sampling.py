@@ -35,18 +35,8 @@ def sampling(key, ms, Ps, lgssm: LGSSM, parallel: bool):
     """
     gains, incs = _backward_maps(key, ms, Ps, lgssm.Fs, lgssm.Qs, lgssm.bs)
     if parallel:
-        from .filtering import use_pallas, use_pallas_scalar
-        if use_pallas(incs):
-            from .pallas.kalman_fused import fused_affine_scan
-            _, xs = fused_affine_scan(gains, incs, reverse=True)
-        elif use_pallas_scalar(incs):
-            from .pallas.scalar_scan import fused_scalar_affine_scan
-            _, xs = fused_scalar_affine_scan(gains[..., 0, 0], incs[..., 0],
-                                             reverse=True)
-            xs = xs[..., None]
-        else:
-            _, xs = jax.lax.associative_scan(sampling_operator, (gains, incs),
-                                             reverse=True)
+        _, xs = jax.lax.associative_scan(sampling_operator, (gains, incs),
+                                         reverse=True)
     else:
         def body(carry, inp):
             carry = sampling_operator(carry, inp)
@@ -94,13 +84,8 @@ def backward_map_moments(F, Q, b, m, P):
 def _backward_maps(key, ms, Ps, Fs, Qs, bs):
     eps = jax.random.normal(key, shape=ms.shape, dtype=ms.dtype)
 
-    from .filtering import use_pallas
-    if use_pallas(bs):
-        from .pallas.kalman_fused import fused_backward_maps
-        gains, incs = fused_backward_maps(Fs, Qs, bs, ms[:-1], Ps[:-1], eps[:-1])
-    else:
-        inc_m, L, gains = backward_map_moments(Fs, Qs, bs, ms[:-1], Ps[:-1])
-        incs = inc_m + mv(L, eps[:-1])
+    inc_m, L, gains = backward_map_moments(Fs, Qs, bs, ms[:-1], Ps[:-1])
+    incs = inc_m + mv(L, eps[:-1])
 
     dx = ms.shape[-1]
     P_last = Ps[-1]

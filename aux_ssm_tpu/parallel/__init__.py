@@ -11,7 +11,7 @@ Mesh axes and their roles:
   batch     — independent LGSSM components (spatial-style models)
 
 Everything builds on `jax.sharding.Mesh` + NamedSharding/shard_map with XLA
-collectives over ICI; `jax.distributed.initialize` for multi-host.
+collectives; `jax.distributed.initialize` for multi-host.
 """
 
 from .mesh import make_mesh, local_mesh

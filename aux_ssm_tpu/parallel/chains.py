@@ -4,18 +4,21 @@
 The reference fakes this with `xla_force_host_platform_device_count` + vmap
 on CPU (`examples/rare_event/experiment.py:21,189-196`). Here it is a
 first-class path: the per-chain kernel is vmapped, chain-indexed PRNG keys
-are derived with `fold_in` (so results are bitwise independent of the mesh
-layout — SURVEY hard-part 6), all chain-local state (trajectory, delta,
-online stats) carries the leading chain axis sharded with NamedSharding, and
+are derived with `fold_in` (so the key stream is independent of the mesh
+layout — SURVEY hard-part 6; the f32 rounding is not, since each device's
+batch shape is compiled on its own, so a cSMC chain on four GPUs can leave
+its one-GPU twin at a draw that rounding flips), all chain-local state
+(trajectory, delta, online stats) carries the leading chain axis sharded
+with NamedSharding, and
 cross-chain reductions (aggregate acceptance, pooled moments) are ordinary
-jnp means that GSPMD lowers to psum over ICI.
+jnp means that GSPMD lowers to a psum.
 
 Like the single-chain `run_chain`, the sharded runner executes in SEGMENTS:
 collected samples are streamed to ONE host-side buffer per segment (device
 memory is bounded by the segment length, not n_samples — a 32-chain SV
 reference run would otherwise pin a ~10 GB (chains, n_samples, T, d) buffer
-on device), and with `checkpoint_dir` set the full loop state persists via
-orbax after each segment. Per-iteration keys are `fold_in(phase_key,
+on device), and with `checkpoint_dir` set the full loop state persists as
+`.npz` files after each segment. Per-iteration keys are `fold_in(phase_key,
 global_iter)` per chain, so segmented, killed-and-resumed, and monolithic
 runs are bitwise identical.
 """
@@ -30,7 +33,6 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from .mesh import CHAINS
 from ..experiments.runner import RunConfig, RunResult, _phase_segment, \
     _BURNIN_PHASE, _SAMPLE_PHASE
-from ..utils.profiling import fence as _fence
 from ..utils.stats import init_stats
 
 
@@ -165,11 +167,11 @@ def run_sharded_chains(key, kernel: Callable, init_states, cfg: RunConfig,
                 fn = jax.jit(jax.vmap(seg, in_axes=(0, 0, 0, 0, None)))
                 segs[length] = fn.lower(phase_keys, states, deltas, stats,
                                         jnp.int32(t)).compile()
-            _fence((states, deltas, stats))
+            jax.block_until_ready((states, deltas, stats))
             tic = time.perf_counter()
             states, deltas, stats, xs = segs[length](
                 phase_keys, states, deltas, stats, jnp.int32(t))
-            _fence(stats if xs is None else xs)
+            jax.block_until_ready((states, deltas, stats, xs))
             if timed:
                 sampling_time += time.perf_counter() - tic
             t += length

@@ -1,8 +1,8 @@
 """Multi-host runtime initialisation (SURVEY §2.4: `jax.distributed` is the
 first-class component the reference lacks).
 
-On a TPU pod slice, call `initialize()` once per host process before any
-device use; afterwards `jax.devices()` spans the slice and every mesh built
+On a multi-host cluster, call `initialize()` once per host process before
+any device use; afterwards `jax.devices()` spans every host and every mesh built
 by `parallel.mesh.make_mesh` is global. Chain/particle sharding, collective
 resampling, and adaptation reductions then work unchanged — all
 communication is expressed through NamedSharding/shard_map collectives, so
@@ -16,9 +16,9 @@ import jax
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None):
-    """Initialise the distributed JAX runtime. With no arguments, TPU pod
-    environments auto-discover topology from the metadata server; arguments
-    are forwarded for explicit setups (e.g. CPU multi-process tests)."""
+    """Initialise the distributed JAX runtime. The arguments are forwarded
+    to `jax.distributed.initialize`; where no cluster manager describes the
+    job, give all three (e.g. `coordinator_address="localhost:<port>"`)."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

@@ -6,7 +6,7 @@ key reproducibility. Strategy: the categorical draw happens on *replicated*
 all-gathered weights (N floats — bytes on the wire), so every shard computes
 the identical index vector from the identical key; the particle gather is
 resolved by all-gathering particles and slicing the local output range.
-All-gather of weights+particles rides ICI and is cheap next to the per-step
+All-gather of weights+particles is cheap next to the per-step
 model math at the N this framework targets (<= 64k particles).
 """
 import jax

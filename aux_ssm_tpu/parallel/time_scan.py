@@ -1,13 +1,12 @@
 """Time-axis sharding: distributed associative scans over a `time` mesh axis.
 
 SURVEY §2.4 P1/P2: the domain's "sequence parallelism". The temporal Kalman
-filter/sampler are associative scans over T; to scale T beyond one chip the
-scan runs as a two-level block scan — the same structure the fused Pallas
-kernel uses within a chip, lifted to the mesh:
+filter/sampler are associative scans over T; to scale T beyond one device
+the scan runs as a two-level block scan over the mesh:
 
   1. each shard runs the inclusive scan of its local T/S block
      (hitting the single-chip fast path);
-  2. the S block totals (one element each — KBs) are all-gathered over ICI
+  2. the S block totals (one element each — KBs) are all-gathered
      and every shard combines its own prefix redundantly with a tiny
      replicated scan (S is small; replicated compute beats a sequential
      ppermute chain);

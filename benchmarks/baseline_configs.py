@@ -15,11 +15,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _jax():
-    import jax
-    return jax
-
-
 def _time_scan(kernel_step, state, n_iter, key):
     """Single-dispatch timing of n_iter kernel steps."""
     import jax
@@ -29,13 +24,9 @@ def _time_scan(kernel_step, state, n_iter, key):
         return kernel_step(k, c), None
 
     f = jax.jit(lambda s: jax.lax.scan(body, s, jax.random.split(key, n_iter))[0])
-    from aux_ssm_tpu.utils.profiling import fence
-
-    out = f(state)
-    fence(out)
+    out = jax.block_until_ready(f(state))
     tic = time.perf_counter()
-    out = f(out)
-    fence(out)
+    out = jax.block_until_ready(f(out))
     return n_iter / (time.perf_counter() - tic), out
 
 
@@ -163,8 +154,8 @@ def config5():
         def logpdf(self, x_n, x_t, p):
             return jnp.sum(norm.logpdf(x_n, 0.9 * x_t, 0.5), -1)
 
-        # (1, N) lane-row callables: the bootstrap sweep runs inside one
-        # Pallas launch (csmc_fwd.lane_forward_scan, chunked at N = 4096).
+        # (1, N) lane-row callables: on one device the bootstrap sweep runs
+        # through `ops/csmc_sweeps.lane_scan`.
         def lane_propagate(self, eps, x_prev, _p):
             return 0.9 * x_prev + 0.5 * eps
 
@@ -196,16 +187,14 @@ CONFIGS = {1: config1, 2: config2, 3: config3, 4: config4, 5: config5}
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which == "all":
-        # One subprocess per config: config1 switches jax_platforms to CPU
+        # One subprocess per config, one after another, so that one process
+        # holds the device at a time: config1 switches jax_platforms to CPU
         # process-globally, which would silently demote configs 2-5 to CPU
-        # if they shared its process.
+        # if they shared its process. This parent never touches the device.
         import subprocess
-        for i in CONFIGS:
-            subprocess.run([sys.executable, os.path.abspath(__file__), str(i)])
+        failed = [i for i in CONFIGS if subprocess.run(
+            [sys.executable, os.path.abspath(__file__), str(i)]).returncode]
+        if failed:
+            sys.exit(f"configs {failed} failed")
     else:
-        i = int(which)
-        try:
-            print(json.dumps(CONFIGS[i]()), flush=True)
-        except Exception as e:  # keep the sweep going
-            print(json.dumps({"config": i, "error": f"{type(e).__name__}: {e}"}),
-                  flush=True)
+        print(json.dumps(CONFIGS[int(which)]()), flush=True)

@@ -1,8 +1,9 @@
-"""cSMC-family throughput measurements (round-2 perf targets, VERDICT items
-2/3): sequential cSMC, PGAS, and PIT with the fused stitching kernel.
+"""cSMC-family throughput measurements: sequential cSMC, PGAS, and PIT with
+the factorised stitching path.
 
-Run on the TPU chip: `python benchmarks/csmc_speed.py [case ...]`
-Cases: seq32 pgas256 pit128 pit1024 pit4096 sharded4096 all
+Run on the GPU: `python benchmarks/csmc_speed.py [case ...]`
+Cases: seq32 pgas256 sv_guided spatial_guided pit128 pit1024 pit4096
+pit8192 sharded4096 spatial_ref all
 Each prints one JSON line (single-dispatch timing: one lax.scan over n_iter
 kernel steps, all outputs consumed).
 """
@@ -24,13 +25,9 @@ def _time_scan(kernel_step, state, n_iter, key):
         return s, None
 
     f = jax.jit(lambda s: jax.lax.scan(body, s, jax.random.split(key, n_iter))[0])
-    from aux_ssm_tpu.utils.profiling import fence
-
-    out = f(state)
-    fence(out)
+    out = jax.block_until_ready(f(state))
     tic = time.perf_counter()
-    out = f(out)
-    fence(out)
+    out = jax.block_until_ready(f(out))
     return n_iter / (time.perf_counter() - tic), out
 
 
@@ -42,8 +39,7 @@ def _sv_setup(T, D):
 
 
 def seq32():
-    """Sequential auxiliary cSMC on SV, T=1024 D=1, N=32, backward sampling.
-    Round-1: 27.6 samples/s; target >=150."""
+    """Sequential auxiliary cSMC on SV, T=1024 D=1, N=32, backward sampling."""
     import jax
     import jax.numpy as jnp
     from aux_ssm_tpu.models import stochastic_volatility as sv
@@ -71,8 +67,45 @@ def pgas256():
             "update_rate": round(float(jnp.mean(out.updated.astype(jnp.float32))), 3)}
 
 
+def sv_guided():
+    """SV csmc-guided at the reference config (T=250, D=30, N=25)."""
+    import jax
+    import jax.numpy as jnp
+    from aux_ssm_tpu.models import stochastic_volatility as sv
+
+    T, D, N = 250, 30, 25
+    _, ys = _sv_setup(T, D)
+    init, kernel = sv.get_guided_csmc_kernel(ys, 0.0, 0.9, 2.0, 0.25, N,
+                                             backward=True)
+    delta = jnp.full((T,), 5e-2, jnp.float32)
+    sps, out = _time_scan(lambda k, s: kernel(k, s, delta),
+                          init(jnp.zeros((T, D), jnp.float32)), 100,
+                          jax.random.key(1))
+    return {"case": "sv_guided_T250_D30_N25", "samples_per_sec": round(sps, 2),
+            "update_rate": round(float(jnp.mean(out.updated.astype(jnp.float32))), 3)}
+
+
+def spatial_guided():
+    """Spatial csmc-guided at the reference config (T=1024, D=8, N=25)."""
+    import jax
+    import jax.numpy as jnp
+    from aux_ssm_tpu.models import spatial as sp
+
+    T, D, N = 1024, 8, 25
+    _, ys = sp.get_data(np.random.default_rng(0), 0.3, 1.0, -0.25, 4.0, D, T)
+    init, kernel = sp.get_guided_csmc_kernel(
+        jnp.asarray(ys, jnp.float32), 0.3, 4.0, -0.25, 1.0, D, N, backward=True)
+    delta = jnp.full((T,), 0.05, jnp.float32)
+    sps, out = _time_scan(lambda k, s: kernel(k, s, delta),
+                          init(jnp.zeros((T, D * D), jnp.float32)), 50,
+                          jax.random.key(1))
+    return {"case": "spatial_guided_T1024_D8_N25",
+            "samples_per_sec": round(sps, 2),
+            "update_rate": round(float(jnp.mean(out.updated.astype(jnp.float32))), 3)}
+
+
 def _pit(N, T=1024, n_iter=20):
-    """Parallel-in-time aPG on SV D=1 with the fused stitching path."""
+    """Parallel-in-time aPG on SV D=1 with the factorised stitching path."""
     import jax
     import jax.numpy as jnp
     from aux_ssm_tpu.models import stochastic_volatility as sv
@@ -85,7 +118,6 @@ def _pit(N, T=1024, n_iter=20):
     sps, out = _time_scan(lambda k, s: kernel(k, s, delta), init(xs), n_iter,
                           jax.random.key(1))
     return {"case": f"pit_csmc_T{T}_N{N}", "samples_per_sec": round(sps, 2),
-            "pallas": bool(int(os.environ.get("AUX_SSM_PALLAS", "1") != "0")),
             "update_rate": round(float(jnp.mean(out.updated.astype(jnp.float32))), 3)}
 
 
@@ -114,7 +146,7 @@ def sharded4096():
 
 def spatial_ref():
     """Spatial reference config T=1024 D=8 (64 batched scalar filters,
-    2nd-order factory) — round-1: 274 samples/s; target >=3x."""
+    2nd-order factory)."""
     import jax
     import jax.numpy as jnp
     from aux_ssm_tpu.models import spatial as sp
@@ -132,15 +164,12 @@ def spatial_ref():
 
 
 
-CASES = {f.__name__: f for f in (seq32, pgas256, pit128, pit1024, pit4096,
-                                 pit8192, sharded4096, spatial_ref)}
+CASES = {f.__name__: f for f in (seq32, pgas256, sv_guided, spatial_guided,
+                                 pit128, pit1024, pit4096, pit8192,
+                                 sharded4096, spatial_ref)}
 
 if __name__ == "__main__":
     which = sys.argv[1:] or ["all"]
     names = list(CASES) if which == ["all"] else which
     for n in names:
-        try:
-            print(json.dumps(CASES[n]()), flush=True)
-        except Exception as e:
-            print(json.dumps({"case": n, "error": f"{type(e).__name__}: {e}"}),
-                  flush=True)
+        print(json.dumps(CASES[n]()), flush=True)

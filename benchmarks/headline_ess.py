@@ -25,21 +25,11 @@ def build_order2_factory(T, dx, dtype):
     import jax
     import jax.numpy as jnp
     import __graft_entry__ as graft
-    from aux_ssm_tpu.ops.lgssm import LGSSM, log_likelihood, prior_logpdf
 
     dyn, obs1, target_fn = graft._build_lgssm_model(T, dx, dtype=dtype)
-
-    # Rebuild pieces to access H, R, ys (same seed/construction).
-    import numpy as onp
-    rng = onp.random.default_rng(0)
-    eye = onp.eye(dx)
-    A = 0.5 * rng.standard_normal((dx, dx)) / onp.sqrt(dx)
-    # (We only need H/R; regenerate exactly as _build_lgssm_model does.)
-    F = 0.9 * onp.linalg.matrix_power(eye + A / 8, 1)
-    F = 0.95 * F / max(1.0, onp.max(onp.abs(onp.linalg.eigvals(F))))
-    H = rng.standard_normal((max(1, dx // 4), dx)) / onp.sqrt(dx)
-    R = 0.5 * onp.eye(H.shape[0])
-    hess = -(H.T @ onp.linalg.solve(R, H))          # constant per step
+    (*_, Hs, Rs, _cs), _ys = graft._lgssm_arrays(T, dx)
+    H, R = Hs[0], Rs[0]
+    hess = -(H.T @ np.linalg.solve(R, H))          # constant per step
     hess_j = jnp.asarray(hess, dtype)
     eye_j = jnp.eye(dx, dtype=dtype)
 
@@ -103,10 +93,5 @@ if __name__ == "__main__":
     args = p.parse_args()
     for order in args.order:
         for alpha in args.alpha:
-            try:
-                print(json.dumps(run_one(order, alpha,
-                                         n_samples=args.n_samples)), flush=True)
-            except Exception as e:
-                print(json.dumps({"case": f"kalman{order}_a{alpha}",
-                                  "error": f"{type(e).__name__}: {e}"}),
-                      flush=True)
+            print(json.dumps(run_one(order, alpha,
+                                     n_samples=args.n_samples)), flush=True)

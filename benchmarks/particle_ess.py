@@ -3,7 +3,7 @@ metric ("samples/sec/chip AND ESS/sec"), previously measured only for the
 Kalman family (`headline_ess.py`). Cases:
 
   sv_csmc          SV T=250 D=30 N=25, auxiliary cSMC, backward sampling
-  sv_csmc_guided   SV T=250 D=30 N=25, guided cSMC (fused block-lane path)
+  sv_csmc_guided   SV T=250 D=30 N=25, guided cSMC (block-lane sweep)
   theta_pgas       theta-logistic bootstrap PGAS, T=256 N=256
   pit128 / pit1024 parallel-in-time aPG on SV D=1 T=1024
 

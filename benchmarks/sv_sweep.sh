@@ -2,7 +2,7 @@
 # Stochastic-volatility experiment schedule — the paper grid encoded by
 # reference `examples/stochastic_volatility/experiment.sh:1-10` (styles x
 # gradient at T=250, D=30, N=25, target alpha 0.5), run on whatever backend
-# JAX resolves (TPU here; pass --platform cpu to force CPU). One invocation
+# JAX resolves (the GPU; pass --platform cpu to force CPU). One invocation
 # per style writes the standard .npz schema (samples moments, EJSD, delta,
 # sampling_time) consumed by `experiments.figures sv_style_comparison`.
 set -euo pipefail

@@ -77,6 +77,16 @@ class GaussianObsGt(Potential):
         return jnp.sum(norm.logpdf(y, x_t_p_1, sig), axis=-1)
 
 
+def force_generic_sweeps(monkeypatch):
+    """Route every cSMC sweep through the generic `lax.scan` passes (as for
+    a model without the specialised protocols), for comparisons against the
+    specialised sweeps the same model takes by default."""
+    from aux_ssm_tpu.kernels import csmc
+    for name in ("_use_factor_forward", "_use_lane_forward",
+                 "_use_block_lane_forward", "_use_factor_backward"):
+        monkeypatch.setattr(csmc, name, lambda *a: False)
+
+
 def ar1_lgssm_arrays(T, d, phi, sig_x, sig_y, m0=0.0, sig0=1.0):
     """The same model as explicit LGSSM arrays for the Kalman oracle."""
     eye = np.eye(d)

@@ -1,6 +1,6 @@
 """Hand-written NumPy oracles for Kalman filtering/smoothing, with exact
 missing-data handling by *deleting* missing rows (the gold standard the
-masked TPU implementation must match). Loop-based and deliberately naive.
+masked implementation must match). Loop-based and deliberately naive.
 
 Modeled on the reference's test oracles (`_primitives/test_kalman/common.py`)
 but written independently.

@@ -121,10 +121,9 @@ def test_backward_scanning_matches_sequential_trace():
 
 
 def test_csmc_T1_final_weight_respects_G0(monkeypatch):
-    """Regression: T==1 must not take the fused factor path (whose w_T would
+    """Regression: T==1 must not take a specialised sweep (whose w_T would
     come from an empty log-weight stack) — the final draw must follow
     normalize(G0(x0)), not a uniform. G0 here puts all mass near x=4."""
-    monkeypatch.setenv("AUX_SSM_FUSED_CSMC", "xla")
     import chex
     from jax.scipy.stats import norm
     from aux_ssm_tpu.kernels.csmc_base import UnivariatePotential

@@ -77,12 +77,10 @@ def test_posterior_moments(style):
 
 @pytest.mark.parametrize("guided", [False, True])
 def test_lane_path_under_grid_vmap_matches_generic(guided, monkeypatch):
-    """The fused lane forward path must produce the same chain as the
-    generic scan when the model is built under a vmap over traced
-    (rho, r2) grid cells — the rare-event grid driver's exact pattern.
-    Every model quantity the lane callables read rides the per-step params
-    (a closed-over tracer inside a Pallas kernel body is invisible to the
-    batching rule); this pins the params-threading down on the XLA twin."""
+    """The lane sweep must produce the same chain as the generic scan when
+    the model is built under a vmap over traced (rho, r2) grid cells — the
+    rare-event grid driver's exact pattern. Every model quantity the lane
+    callables read rides the per-step params; this pins that down."""
     T, N, n_iter = 8, 16, 4
     rhos = jnp.asarray([0.2, 0.8], jnp.float32)
     r2s = jnp.asarray([0.5, 0.05], jnp.float32)
@@ -109,8 +107,8 @@ def test_lane_path_under_grid_vmap_matches_generic(guided, monkeypatch):
         return xs
 
     keys = jax.random.split(jax.random.key(3), 2)
-    monkeypatch.setenv("AUX_SSM_FUSED_CSMC", "xla")
     fused = np.asarray(jax.jit(jax.vmap(chain))(keys, rhos, r2s))
-    monkeypatch.setenv("AUX_SSM_FUSED_CSMC", "0")
+    from csmc_common import force_generic_sweeps
+    force_generic_sweeps(monkeypatch)
     gen = np.asarray(jax.jit(jax.vmap(chain))(keys, rhos, r2s))
     np.testing.assert_allclose(fused, gen, rtol=1e-5, atol=1e-5)

@@ -31,7 +31,7 @@ def test_dynamics_and_data(data):
 
 def test_hess_log_potential_diag_closed_form(data):
     # d²/dx² log N(y; 0, exp(x)) = -y² exp(-x) / 2; regression for the
-    # round-2 bug where the function returned the first derivative.
+    # earlier bug where the function returned the first derivative.
     _, ys = data
     xs = 0.1 * jnp.arange(T * D, dtype=jnp.float64).reshape(T, D) / (T * D) - 0.05
     got = sv.hess_log_potential_diag(xs, ys)

@@ -161,8 +161,8 @@ def test_sharded_chains_kalman(cmesh):
 
 def test_sharded_csmc_one_device_uses_fused_path(monkeypatch):
     """On a 1-device particles mesh the sharded kernel drops the sharding
-    constraint so `forward_pass` may take the fused (lane/factor) paths;
-    the law must match the generic scan with the same key."""
+    constraint so `forward_pass` may take the specialised (lane/factor)
+    sweeps; the law must match the generic scan with the same key."""
     from aux_ssm_tpu.kernels.csmc import get_kernel
     from aux_ssm_tpu.kernels.csmc_sharded import get_sharded_kernel
     from aux_ssm_tpu.models import theta_logistic as tl
@@ -172,15 +172,15 @@ def test_sharded_csmc_one_device_uses_fused_path(monkeypatch):
     M0, G0, Mt, Gt = tl.get_feynman_kac(ys)
     mesh1 = make_mesh(devices=jax.devices()[:1], axis_names=(PARTICLES,))
 
-    # Generic scan (fused paths off).
-    monkeypatch.setenv("AUX_SSM_FUSED_CSMC", "0")
-    init, kernel = get_kernel(M0, G0, Mt, Gt, N)
-    out_gen = jax.jit(kernel)(jax.random.key(4), init(jnp.zeros((T, 1))))
-
-    # 1-device sharded kernel with the lane (XLA-twin) path forced on.
-    monkeypatch.setenv("AUX_SSM_FUSED_CSMC", "xla")
+    # 1-device sharded kernel: the lane sweep.
     init_s, kernel_s = get_sharded_kernel(M0, G0, Mt, Gt, N, mesh1)
     out_s = jax.jit(kernel_s)(jax.random.key(4), init_s(jnp.zeros((T, 1))))
+
+    # Generic scan (specialised sweeps off).
+    from csmc_common import force_generic_sweeps
+    force_generic_sweeps(monkeypatch)
+    init, kernel = get_kernel(M0, G0, Mt, Gt, N)
+    out_gen = jax.jit(kernel)(jax.random.key(4), init(jnp.zeros((T, 1))))
 
     anc_agree = np.mean(np.asarray(out_gen.x) == np.asarray(out_s.x))
     assert anc_agree > 0.95, anc_agree  # identical up to f32 cumsum ties

@@ -1,13 +1,12 @@
-"""Unit tests for the fused (factorised) PIT stitching path.
+"""Unit tests for the factorised PIT stitching path (`ops/stitching.py`).
 
 Covers, bottom-up:
 - pair-factorisation helpers reproduce the dense pairwise Gaussian logpdf
   matrix exactly (diagonal and full-covariance forms);
-- `row_lse_xla` and the Pallas `row_lse` (interpret mode) match a dense
-  logsumexp;
-- `col_sample_xla` and the Pallas `col_sample` (interpret mode) are
-  bit-identical, and the draws follow the exact conditional categorical law;
-- the fused stitching operator's pair law matches the dense N^2 softmax
+- `row_lse` and `block_masses` match a dense (f64) logsumexp;
+- the column draws follow the exact conditional categorical law, and are
+  deterministic in (seed, pair counter) however a level is split;
+- every node-draw engine's pair law matches the dense N^2 softmax
   (empirical frequencies over many seeds vs exact joint probabilities).
 """
 import chex
@@ -19,7 +18,7 @@ import pytest
 from aux_ssm_tpu.kernels.csmc_base import (
     diag_gaussian_pair_factors, chol_gaussian_pair_factors,
 )
-from aux_ssm_tpu.ops.pallas import stitching as st
+from aux_ssm_tpu.ops import stitching as st
 
 
 def _dense_scores(rf, cf, cb):
@@ -75,34 +74,43 @@ def test_row_lse_xla_matches_dense(N):
         np.asarray(jax.scipy.special.logsumexp(_dense_scores(rf[p], cf[p], cb[p]), axis=1))
         for p in range(P)
     ])
-    got = st.row_lse_xla(rf, cf, cb, block=64)
+    got = st.row_lse(rf, cf, cb, block=64)
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-10)
 
 
-def test_row_lse_pallas_interpret_matches_xla():
+def test_row_lse_f32_matches_f64_dense():
+    """f32 scores at N=256 against the f64 dense logsumexp: the score
+    products run in f32 (not TF32), so the log-masses stay at f32 round-off."""
     rng = np.random.default_rng(3)
     P, N, k = 2, 256, 4
-    rf = jnp.asarray(rng.standard_normal((P, N, k)), dtype=jnp.float32)
-    cf = jnp.asarray(rng.standard_normal((P, N, k)), dtype=jnp.float32)
-    cb = jnp.asarray(rng.standard_normal((P, N)), dtype=jnp.float32)
+    rf = rng.standard_normal((P, N, k))
+    cf = rng.standard_normal((P, N, k))
+    cb = rng.standard_normal((P, N))
+    want = np.stack([
+        np.log(np.exp(_dense_scores(rf[p], cf[p], cb[p])
+                      - _dense_scores(rf[p], cf[p], cb[p]).max(1, keepdims=True)
+                      ).sum(1))
+        + _dense_scores(rf[p], cf[p], cb[p]).max(1) for p in range(P)])
+    got = st.row_lse(*(jnp.asarray(z, jnp.float32) for z in (rf, cf, cb)))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-6, atol=2e-5)
 
-    got = st.row_lse(rf, cf, cb, interpret=True)
-    want = st.row_lse_xla(rf, cf, cb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-6, atol=2e-6)
 
-
-def test_col_sample_pallas_interpret_bitwise_matches_xla():
+def test_col_sample_pair_offset_matches_full_call():
+    """A call over a slice of a level's nodes with `pair_offset` draws
+    bit-identically to the same nodes of the full call — the property the
+    device-sharded stitching relies on."""
     rng = np.random.default_rng(4)
-    P, n, N, k = 2, 128, 256, 3
+    P, n, N, k = 4, 128, 256, 3
     rf = jnp.asarray(rng.standard_normal((P, n, k)), dtype=jnp.float32)
     cf = jnp.asarray(rng.standard_normal((P, N, k)), dtype=jnp.float32)
     cb = jnp.asarray(rng.standard_normal((P, N)), dtype=jnp.float32)
     seed = jnp.asarray(1234, dtype=jnp.int32)
 
-    got = st.col_sample(seed, rf, cf, cb, interpret=True)
-    want = st.col_sample_xla(seed, rf, cf, cb)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    full = np.asarray(st.col_sample(seed, rf, cf, cb))
+    part = np.asarray(st.col_sample(seed, rf[2:], cf[2:], cb[2:],
+                                    pair_offset=2))
+    np.testing.assert_array_equal(part, full[2:])
+    assert full.min() >= 0 and full.max() < N
 
 
 def test_col_sample_law():
@@ -119,7 +127,7 @@ def test_col_sample_law():
     p = np.exp(s - s.max())
     p /= p.sum()
 
-    draw = jax.jit(lambda sd: st.col_sample_xla(sd, rf, cf, cb)[0, 0])
+    draw = jax.jit(lambda sd: st.col_sample(sd, rf, cf, cb)[0, 0])
     seeds = jnp.arange(n_seeds, dtype=jnp.int32)
     idx = np.asarray(jax.vmap(draw)(seeds))
     freq = np.bincount(idx, minlength=N) / n_seeds
@@ -135,7 +143,7 @@ def test_block_masses_xla_matches_dense(N):
     cf = jnp.asarray(rng.standard_normal((P, N, k)), dtype=jnp.float32)
     cb = jnp.asarray(rng.standard_normal((P, N)), dtype=jnp.float32)
 
-    got = st.block_masses_xla(rf, cf, cb)
+    got = st.block_masses(rf, cf, cb)
     nb = N // 128
     for p in range(P):
         s = _dense_scores(np.asarray(rf[p], np.float64),
@@ -150,37 +158,34 @@ def test_block_masses_xla_matches_dense(N):
                                    rtol=1e-4, atol=1e-5)
     # Row-LSE consistency with the two-pass kernel's law.
     lse = jax.scipy.special.logsumexp(got, axis=-1)
-    want_lse = st.row_lse_xla(rf, cf, cb)
+    want_lse = st.row_lse(rf, cf, cb)
     np.testing.assert_allclose(np.asarray(lse), np.asarray(want_lse),
                                rtol=1e-5, atol=1e-5)
 
 
-def test_block_masses_pallas_interpret_matches_xla():
+def test_block_masses_per_block_max_matches_row_max():
+    """The two stabilisers (row max, per-block max) give the same
+    log-masses up to f32 round-off."""
     rng = np.random.default_rng(9)
     P, N, k = 2, 256, 2
     rf = jnp.asarray(rng.standard_normal((P, N, k)), dtype=jnp.float32)
     cf = jnp.asarray(rng.standard_normal((P, N, k)), dtype=jnp.float32)
     cb = jnp.asarray(rng.standard_normal((P, N)), dtype=jnp.float32)
 
-    got = st.block_masses(rf, cf, cb, interpret=True)
-    want = st.block_masses_xla(rf, cf, cb)
-    # The kernel's per-block cross-lane tree sum vs the twin's linear matmul
-    # accumulation: association-only difference, ~1e-5 worst-case on the
-    # log-masses over 128 nonnegative terms.
+    got = st.block_masses(rf, cf, cb, per_block_max=True)
+    want = st.block_masses(rf, cf, cb, per_block_max=False)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=5e-5, atol=5e-5)
+                               rtol=5e-6, atol=5e-6)
 
 
 def test_block_masses_suppressed_block_flushes_to_neg_inf():
     """A strongly suppressed column block (every column ~88+ log-units under
-    the row max): e = exp(s - m) is f32-SUBNORMAL (below ~2^-126 from gap
-    ~87.3). The XLA twin's matmul accumulation flushes such operands to
-    zero -> log-mass exactly -inf; the kernel's VPU slice-sum flushes on TPU
-    hardware but may keep the tiny finite value (~gap - log-ish) where the
-    arithmetic honours subnormals (CPU interpret). Pin the contract both
-    ways: the suppressed block's mass is <= -(gap - log(128)) or -inf, the
-    row LSE is unaffected, and blocked draws never select the block —
-    downstream is -inf-tolerant AND tiny-finite-tolerant."""
+    the row max): e = exp(s - m) is f32-subnormal (below ~2^-126 from gap
+    ~87.3). Where the arithmetic flushes subnormals (GPU) the block's
+    log-mass is exactly -inf; where it keeps them (CPU) it is a tiny finite
+    value. Pin the contract both ways: the suppressed block's mass is
+    <= -(gap - log(128)) or -inf, the row LSE is unaffected, and blocked
+    draws never select the block."""
     N, k = 256, 1
     rf = jnp.ones((1, N, k), jnp.float32)
     cf = jnp.zeros((1, N, k), jnp.float32)
@@ -189,32 +194,24 @@ def test_block_masses_suppressed_block_flushes_to_neg_inf():
         cb = jnp.concatenate(
             [jnp.zeros((1, 128)), jnp.full((1, 128), -float(gap))],
             axis=1).astype(jnp.float32)
-        return (st.block_masses_xla(rf, cf, cb),
-                st.block_masses(rf, cf, cb, interpret=True))
+        return st.block_masses(rf, cf, cb), st.row_lse(rf, cf, cb)
 
-    # gap 87: e ~ 1.6e-38 is f32-normal — both paths finite and matching.
-    want87, got87 = masses(87)
-    assert np.all(np.isfinite(np.asarray(want87)))
-    np.testing.assert_allclose(np.asarray(got87), np.asarray(want87),
-                               rtol=5e-5, atol=5e-5)
+    # gap 87: e ~ 1.6e-38 is f32-normal — finite and exact.
+    got87, _ = masses(87)
+    np.testing.assert_allclose(np.asarray(got87[..., 1]),
+                               -87.0 + np.log(128.0), rtol=1e-6)
 
-    # gap 95: e ~ 5.5e-42 is f32-subnormal — the matmul twin FTZs to -inf;
-    # the kernel's slice sum is -inf on TPU, finite ~-90.1 where subnormals
-    # survive. Either value carries probability 0.
-    want95, got95 = masses(95)
-    assert np.all(np.asarray(want95[..., 1]) == -np.inf)
+    # gap 95: e ~ 5.5e-42 is f32-subnormal — -inf or tiny-finite; either
+    # carries probability 0.
+    got95, lse95 = masses(95)
     assert np.all(np.asarray(got95[..., 1]) <= -88.0)
-    np.testing.assert_allclose(np.asarray(got95[..., 0]),
-                               np.asarray(want95[..., 0]), rtol=5e-5)
+    np.testing.assert_allclose(np.asarray(got95[..., 0]), np.log(128.0),
+                               rtol=1e-6)
+    np.testing.assert_allclose(
+        np.asarray(jax.scipy.special.logsumexp(got95, axis=-1)),
+        np.asarray(lse95), rtol=5e-6)
 
-    # Row LSE is unchanged (block 0 dominates by ~90 log-units).
-    lse_got = jax.scipy.special.logsumexp(got95, axis=-1)
-    lse_want = jax.scipy.special.logsumexp(want95, axis=-1)
-    np.testing.assert_allclose(np.asarray(lse_got), np.asarray(lse_want),
-                               rtol=5e-5)
-
-    # Downstream joint (row, block) draws tolerate the suppressed mass
-    # (-inf or tiny-finite) and never pick that block.
+    # Downstream joint (row, block) draws never pick that block.
     rb = jnp.zeros((1, N), jnp.float32)
     u = jax.random.uniform(jax.random.key(0), (1, 64))
     _, blocks = st.joint_rowblock_draws(u, rb, got95)
@@ -240,7 +237,7 @@ def test_blocked_col_sample_law(monkeypatch, stage2):
     p = np.exp(s - s.max())
     p /= p.sum()
 
-    Lb = st.block_masses_xla(rf_full, cf, cb)
+    Lb = st.block_masses(rf_full, cf, cb)
 
     draw = jax.jit(lambda sd: st.blocked_col_sample(sd, rows, Lb, rf, cf, cb)[0, 0])
     idx = np.asarray(jax.vmap(draw)(jnp.arange(n_seeds, dtype=jnp.int32)))
@@ -318,7 +315,7 @@ def test_super_node_draw_law_matches_dense_joint(monkeypatch):
     def draw(seed):
         keys = jax.random.split(jax.random.key(seed), 1)
         rows, cols = pit_mod._fused_node_draw(
-            xl, xr, lw, lw, None, keys, gt, N, False, False)
+            xl, xr, lw, lw, None, keys, gt, N, False)
         return rows[0, 1], cols[0, 1]
 
     draw_j = jax.jit(draw)
@@ -339,7 +336,7 @@ def test_joint_rowblock_draws_law():
     cf = jnp.asarray(0.4 * rng.standard_normal((1, N, k)), jnp.float32)
     cb = jnp.asarray(rng.standard_normal((1, N)), jnp.float32)
     rb = jnp.asarray(rng.standard_normal((1, N)), jnp.float32)
-    Lb = st.block_masses_xla(rf, cf, cb)                    # (1, N, 2)
+    Lb = st.block_masses(rf, cf, cb)                    # (1, N, 2)
     nb = Lb.shape[-1]
 
     M = np.asarray(Lb[0], np.float64) + np.asarray(rb[0], np.float64)[:, None]
@@ -358,16 +355,19 @@ def test_joint_rowblock_draws_law():
                                atol=5 * 0.5 / np.sqrt(n_draws))
 
 
-@pytest.mark.parametrize("draws_mode", ["joint", "fused", "unfused"])
+@pytest.mark.parametrize("draws_mode", ["joint", "2pass", "unfused"])
 def test_blocked_node_draw_law_matches_dense_joint(monkeypatch, draws_mode):
-    """`_fused_node_draw` under AUX_SSM_STITCH=blocked must follow the same
-    flat N^2 softmax law as the two-pass path (non-pinned slots), whichever
-    draw engine runs."""
+    """`_fused_node_draw` must follow the flat N^2 softmax law (non-pinned
+    slots) whichever engine runs: blocked with the joint or unfused draws,
+    or the two-pass row-LSE + column-sample path."""
     from aux_ssm_tpu.kernels import pit as pit_mod
     from aux_ssm_tpu.kernels.csmc_base import Potential
 
-    monkeypatch.setenv("AUX_SSM_STITCH", "blocked")
-    monkeypatch.setenv("AUX_SSM_STITCH_DRAWS", draws_mode)
+    if draws_mode == "2pass":
+        monkeypatch.setenv("AUX_SSM_STITCH", "2pass")
+    else:
+        monkeypatch.setenv("AUX_SSM_STITCH", "blocked")
+        monkeypatch.setenv("AUX_SSM_STITCH_DRAWS", draws_mode)
 
     rng = np.random.default_rng(11)
     N, d = 128, 1
@@ -400,7 +400,7 @@ def test_blocked_node_draw_law_matches_dense_joint(monkeypatch, draws_mode):
     def draw(seed):
         keys = jax.random.split(jax.random.key(seed), 1)
         rows, cols = pit_mod._fused_node_draw(
-            xl, xr, lw, lw, params, keys, gt, N, False, False)
+            xl, xr, lw, lw, params, keys, gt, N, False)
         return rows[0, 1], cols[0, 1]      # slot 1: first unpinned pair
 
     draw_j = jax.jit(draw)
@@ -461,7 +461,7 @@ def test_fused_operator_law_matches_dense_joint():
         ia = ((xl, lw_a, orig), keys_a, params)
         ib = ((xr, lw_b, orig), keys_b, params)
         (traj, _, origins), _, _ = fused_stitching_operator(
-            ia, ib, gt, N, False, False)
+            ia, ib, gt, N, False)
         # slot 1..N-1 are iid joint draws; read back the chosen indices from
         # the origins bookkeeping.
         return origins[0, 0], origins[0, 1]
@@ -506,12 +506,12 @@ def test_fused_operator_pins_reference_pair():
         ia = ((xl, lw, orig), keys_a, params)
         ib = ((xr, lw, orig), keys_b, params)
         (_, _, origins), _, _ = fused_stitching_operator(
-            ia, ib, gt, N, False, False)
+            ia, ib, gt, N, False)
         assert int(origins[0, 0, 0]) == 0 and int(origins[0, block, 0]) == 0
 
 
 # --------------------------------------------------------------------------
-# Fused stage-1 + stage-2 draws (stitch_draws)
+# Blocked draws: edge shapes, stage laws, split invariance
 # --------------------------------------------------------------------------
 
 def _draws_inputs(N, k, P=2, seed=20):
@@ -520,85 +520,98 @@ def _draws_inputs(N, k, P=2, seed=20):
     cf = jnp.asarray(0.4 * rng.standard_normal((P, N, k)), jnp.float32)
     cb = jnp.asarray(rng.standard_normal((P, N)), jnp.float32)
     rb = jnp.asarray(rng.standard_normal((P, N)), jnp.float32)
-    Lb = st.block_masses_xla(rf, cf, cb)
-    row_logits = rb + jax.scipy.special.logsumexp(Lb, axis=-1)
-    u_rows = jax.random.uniform(jax.random.key(seed), (P, N))
-    return rf, cf, cb, Lb, row_logits, u_rows
+    Lb = st.block_masses(rf, cf, cb)
+    return rf, cf, cb, rb, Lb
 
 
-def test_stitch_draws_interpret_matches_xla():
-    N, k = 256, 2
-    rf, cf, cb, Lb, row_logits, u_rows = _draws_inputs(N, k)
-    seed = jnp.int32(13)
-    got = st.stitch_draws(seed, row_logits, u_rows, Lb, rf, cf, cb,
-                          pair_offset=3, interpret=True)
-    want = st.stitch_draws_xla(seed, row_logits, u_rows, Lb, rf, cf, cb,
-                               pair_offset=3)
-    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
-    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
+def test_node_draws_split_over_pairs_match_full_call(monkeypatch):
+    """`_fused_node_draw` over a slice of a level's nodes, given the full
+    call's seed and the slice's pair offset, draws bit-identically to the
+    full call — how the time-sharded tree splits a level across devices."""
+    from aux_ssm_tpu.kernels import pit as pit_mod
+    from aux_ssm_tpu.kernels.csmc_base import Potential
+
+    monkeypatch.setenv("AUX_SSM_STITCH", "blocked")
+
+    @chex.dataclass
+    class PairGt(Potential):
+        supports_pairwise_factors = True
+
+        def pairwise_factors(self, x_left, x_right, params):
+            return diag_gaussian_pair_factors(0.7 * x_left, x_right, 0.9)
+
+    rng = np.random.default_rng(12)
+    P, N = 4, 256
+    xl = jnp.asarray(rng.standard_normal((P, N, 1)), jnp.float32)
+    xr = jnp.asarray(rng.standard_normal((P, N, 1)), jnp.float32)
+    lw = jnp.zeros((P, N), jnp.float32)
+    keys = jax.random.split(jax.random.key(3), P)
+    seed = jnp.int32(77)
+    gt = PairGt(params=None)
+    full = pit_mod._fused_node_draw(xl, xr, lw, lw, None, keys, gt, N, False,
+                                    seed=seed)
+    part = pit_mod._fused_node_draw(xl[2:], xr[2:], lw[2:], lw[2:], None,
+                                    keys[2:], gt, N, False, seed=seed,
+                                    pair_offset=2)
+    for f, q in zip(full, part):
+        np.testing.assert_array_equal(np.asarray(q), np.asarray(f)[2:])
 
 
-def test_stitch_draws_nb1_edge():
-    """N = 128 (a single column block) must work in both paths."""
+def test_blocked_draws_nb1_edge():
+    """N = 128 (a single column block): every block draw is block 0 and
+    the columns are valid, for the joint and the unfused draws."""
     N, k = 128, 1
-    rf, cf, cb, Lb, row_logits, u_rows = _draws_inputs(N, k, seed=21)
-    seed = jnp.int32(5)
-    got = st.stitch_draws(seed, row_logits, u_rows, Lb, rf, cf, cb,
-                          interpret=True)
-    want = st.stitch_draws_xla(seed, row_logits, u_rows, Lb, rf, cf, cb)
-    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
-    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
+    rf, cf, cb, rb, Lb = _draws_inputs(N, k, seed=21)
+    assert Lb.shape == (2, N, 1)
+    u = jax.random.uniform(jax.random.key(5), (2, N))
+    rows, blocks, rf_sel = st.joint_rowblock_draws(u, rb, Lb, row_feat=rf)
+    cols = st.within_block_cols(jnp.int32(5), blocks, rf_sel, cf, cb)
+    assert np.all(np.asarray(blocks) == 0)
+    cols_u = st.blocked_col_sample(jnp.int32(5), rows, Lb, rf_sel, cf, cb)
+    for c in (cols, cols_u):
+        c = np.asarray(c)
+        assert c.min() >= 0 and c.max() < N
 
 
-def test_stitch_draws_rows_law():
-    """Stage-1 rows must follow Cat(softmax(row_logits))."""
+def test_joint_draw_rows_law():
+    """The rows of the joint (row, block) draw follow the row marginal
+    Cat(softmax(rb + logsumexp_b Lb))."""
     N, k = 256, 1
-    rf, cf, cb, Lb, row_logits, _ = _draws_inputs(N, k, P=1, seed=22)
-    p = np.asarray(jax.nn.softmax(row_logits[0]))
-
-    def draw(key):
-        u = jax.random.uniform(key, (1, N))
-        rows, _ = st.stitch_draws_xla(jnp.int32(1), row_logits, u, Lb,
-                                      rf, cf, cb)
-        return rows[0]
-
-    n_rep = 200
-    rows = np.asarray(jax.vmap(draw)(
-        jax.random.split(jax.random.key(0), n_rep))).ravel()
-    freq = np.bincount(rows, minlength=N) / rows.size
-    fb = freq.reshape(8, -1).sum(1)
-    pb = p.reshape(8, -1).sum(1)
-    np.testing.assert_allclose(fb, pb, atol=5 * 0.5 / np.sqrt(rows.size))
+    rf, cf, cb, rb, Lb = _draws_inputs(N, k, P=1, seed=22)
+    p = np.asarray(jax.nn.softmax(rb[0] + jax.scipy.special.logsumexp(
+        Lb[0], axis=-1)))
+    n_draws = 40_000
+    u = jax.random.uniform(jax.random.key(0), (1, n_draws))
+    rows, _ = st.joint_rowblock_draws(u, rb, Lb)
+    freq = np.bincount(np.asarray(rows[0]), minlength=N) / n_draws
+    np.testing.assert_allclose(freq.reshape(8, -1).sum(1),
+                               p.reshape(8, -1).sum(1),
+                               atol=5 * 0.5 / np.sqrt(n_draws))
 
 
-def test_stitch_draws_cols_law_matches_conditional():
-    """Stage-2 cols given a pinned row must follow the exact conditional
-    categorical softmax(rf_row . cf + cb)."""
+def test_within_block_cols_law_matches_conditional():
+    """Given a pinned row and its block, the 128-wide within-block column
+    draw follows softmax(rf_row . cf + cb) restricted to that block."""
     N, k = 256, 2
     rng = np.random.default_rng(23)
-    rf_row = jnp.asarray(rng.standard_normal((1, k)), jnp.float32)
-    rf = jnp.broadcast_to(rf_row[None], (1, N, k))
+    rf_row = jnp.asarray(rng.standard_normal((1, 1, k)), jnp.float32)
     cf = jnp.asarray(0.3 * rng.standard_normal((1, N, k)), jnp.float32)
     cb = jnp.asarray(rng.standard_normal((1, N)), jnp.float32)
-    Lb = st.block_masses_xla(rf, cf, cb)
-    # All rows identical -> any sampled row gives the same conditional.
-    row_logits = jnp.zeros((1, N), jnp.float32)
-    u_rows = jax.random.uniform(jax.random.key(3), (1, N))
+    blocks = jnp.ones((1, 1), jnp.int32)               # columns 128..255
 
-    s = _dense_scores(np.asarray(rf[0, 0:1]), np.asarray(cf[0]),
-                      np.asarray(cb[0]))[0]
+    s = _dense_scores(np.asarray(rf_row[0]), np.asarray(cf[0]),
+                      np.asarray(cb[0]))[0][128:]
     p = np.exp(s - s.max())
     p /= p.sum()
-
-    draw = jax.jit(lambda sd: st.stitch_draws_xla(
-        sd, row_logits, u_rows, Lb, rf, cf, cb)[1][0])
-    n_seeds = 300
-    cols = np.asarray(jax.vmap(draw)(
-        jnp.arange(n_seeds, dtype=jnp.int32))).ravel()
-    freq = np.bincount(cols, minlength=N) / cols.size
-    fb = freq.reshape(8, -1).sum(1)
-    pb = p.reshape(8, -1).sum(1)
-    np.testing.assert_allclose(fb, pb, atol=5 * 0.5 / np.sqrt(cols.size))
+    draw = jax.jit(lambda sd: st.within_block_cols(
+        sd, blocks, rf_row, cf, cb)[0, 0])
+    n_seeds = 4000
+    cols = np.asarray(jax.vmap(draw)(jnp.arange(n_seeds, dtype=jnp.int32)))
+    assert cols.min() >= 128
+    freq = np.bincount(cols - 128, minlength=128) / n_seeds
+    np.testing.assert_allclose(freq.reshape(8, -1).sum(1),
+                               p.reshape(8, -1).sum(1),
+                               atol=5 * 0.5 / np.sqrt(n_seeds))
 
 
 def test_blocked_paths_tolerate_neg_inf_biases():
@@ -620,7 +633,7 @@ def test_blocked_paths_tolerate_neg_inf_biases():
     cb = cb.at[0, jnp.asarray(np.flatnonzero(dead))].set(-jnp.inf)
     rb = jnp.asarray(rng.standard_normal((1, N)), jnp.float32)
 
-    Lb = st.block_masses_xla(rf, cf, cb)
+    Lb = st.block_masses(rf, cf, cb)
     assert bool(jnp.isinf(Lb[0, 0, 1]))          # whole block 1 is empty
 
     # joint (row, block) draw + within-block columns — the default large-N
@@ -641,7 +654,7 @@ def test_blocked_paths_tolerate_neg_inf_biases():
     # Law on the live columns is unchanged by the clamp: compare frequencies
     # against a dense softmax with the dead columns removed.
     rf1 = jnp.broadcast_to(rf[:, 0:1], (1, N, k))
-    Lb1 = st.block_masses_xla(rf1, cf, cb)
+    Lb1 = st.block_masses(rf1, cf, cb)
     draw = jax.jit(lambda sd: st.blocked_col_sample(
         sd, jnp.zeros((1, 1), jnp.int32), Lb1, rf1[:, 0:1], cf, cb)[0, 0])
     n_seeds = 4000
@@ -657,23 +670,21 @@ def test_blocked_paths_tolerate_neg_inf_biases():
     np.testing.assert_allclose(fb, pb, atol=5 * 0.5 / np.sqrt(n_seeds))
 
 
-@pytest.mark.parametrize("fast_take", ["0", "1"])
-def test_payload_riding_matches_take_rows(monkeypatch, fast_take):
+@pytest.mark.parametrize("e", [1, 2])
+def test_payload_riding_matches_take_rows(e):
     """`joint_rowblock_draws(row_extra=...)` / `within_block_cols(col_extra=
     ...)` must return exactly take_along_axis(extra, rows/cols) — the
-    boundary-value ride the stitch tree uses instead of separate scalar
-    selects — on both the flat-fallback and the hierarchical tile paths,
-    without changing the draws themselves."""
-    monkeypatch.setenv("AUX_SSM_FAST_TAKE", fast_take)
+    boundary values the stitch tree carries — without changing the draws
+    themselves."""
     rng = np.random.default_rng(5)
-    P, N, k, e, n = 2, 2048, 1, 2, 256   # N*nb/128 = 256 > 128: 3-level path
+    P, N, k, n = 2, 2048, 1, 256
     rf = jnp.asarray(0.3 * rng.standard_normal((P, N, k)), jnp.float32)
     cf = jnp.asarray(0.3 * rng.standard_normal((P, N, k)), jnp.float32)
     cb = jnp.asarray(rng.standard_normal((P, N)), jnp.float32)
     rb = jnp.asarray(rng.standard_normal((P, N)), jnp.float32)
     rex = jnp.asarray(rng.standard_normal((P, N, e)), jnp.float32)
     cex = jnp.asarray(rng.standard_normal((P, N, e)), jnp.float32)
-    Lb = st.block_masses_xla(rf, cf, cb)
+    Lb = st.block_masses(rf, cf, cb)
     u = jax.random.uniform(jax.random.key(1), (P, n))
 
     base = jax.jit(lambda: st.joint_rowblock_draws(u, rb, Lb, row_feat=rf))()
@@ -727,9 +738,9 @@ def test_node_draw_payload_pinning(monkeypatch):
     for mode in ["joint", "unfused"]:
         monkeypatch.setenv("AUX_SSM_STITCH_DRAWS", mode)
         rows0, cols0 = jax.jit(lambda: pit_mod._fused_node_draw(
-            xl, xr, lw, lw, None, keys, gt, N, False, False))()
+            xl, xr, lw, lw, None, keys, gt, N, False))()
         rows, cols, rpay, cpay = jax.jit(lambda: pit_mod._fused_node_draw(
-            xl, xr, lw, lw, None, keys, gt, N, False, False,
+            xl, xr, lw, lw, None, keys, gt, N, False,
             row_payload=rex, col_payload=cex))()
         np.testing.assert_array_equal(np.asarray(rows), np.asarray(rows0)), mode
         np.testing.assert_array_equal(np.asarray(cols), np.asarray(cols0)), mode
