@@ -5,13 +5,20 @@ The reference fakes this with `xla_force_host_platform_device_count` + vmap
 on CPU (`examples/rare_event/experiment.py:21,189-196`). Here it is a
 first-class path: the per-chain kernel is vmapped, chain-indexed PRNG keys
 are derived with `fold_in` (so the key stream is independent of the mesh
-layout — SURVEY hard-part 6; the f32 rounding is not, since each device's
-batch shape is compiled on its own, so a cSMC chain on four GPUs can leave
-its one-GPU twin at a draw that rounding flips), all chain-local state
-(trajectory, delta, online stats) carries the leading chain axis sharded
-with NamedSharding, and
-cross-chain reductions (aggregate acceptance, pooled moments) are ordinary
-jnp means that GSPMD lowers to a psum.
+layout — SURVEY hard-part 6), all chain-local state (trajectory, delta,
+online stats) carries the leading chain axis sharded with NamedSharding,
+and cross-chain reductions (aggregate acceptance, pooled moments) are
+ordinary jnp means that GSPMD lowers to a psum.
+
+The chain steps themselves run under `shard_map`: each device runs the
+vmapped program on its own chains, with no collective. (Left to GSPMD, the
+partitioner all-gathered the chain axis around the batched triangular
+solves of a cSMC step, so every device solved for every chain, and on the
+GPU the replicated solve rounded differently from the per-device one.)
+A sharded chain is therefore the same program, bit for bit, as the same
+chains run on one device at the per-device batch (`--n-chains 8
+--mesh-chains 4` against two chains per program); a batch of one chain
+compiles differently again.
 
 Like the single-chain `run_chain`, the sharded runner executes in SEGMENTS:
 collected samples are streamed to ONE host-side buffer per segment (device
@@ -28,6 +35,7 @@ from typing import Callable, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from .mesh import CHAINS
@@ -45,6 +53,17 @@ def shard_chains(mesh, tree):
 def chain_keys(key, n_chains):
     """Mesh-layout-independent per-chain keys via fold_in."""
     return jax.vmap(lambda i: jax.random.fold_in(key, i))(jnp.arange(n_chains))
+
+
+def chains_segment(seg, mesh=None):
+    """A phase segment `seg(key, state, delta, stats, start)` vmapped over
+    the leading chain axis and jitted; with a mesh, under `shard_map`, so
+    each device steps its own chains with no collective."""
+    fn = jax.vmap(seg, in_axes=(0, 0, 0, 0, None))
+    if mesh is not None:
+        fn = shard_map(fn, mesh=mesh, in_specs=(P(CHAINS),) * 4 + (P(),),
+                       out_specs=P(CHAINS), check_vma=False)
+    return jax.jit(fn)
 
 
 def _save(directory, payload, step):
@@ -70,6 +89,10 @@ def run_sharded_chains(key, kernel: Callable, init_states, cfg: RunConfig,
     """Run `n_chains` independent chains (leading axis of `init_states`)
     through burn-in + sampling, sharded over `mesh`'s chains axis.
 
+    `key` is one PRNG key, from which chain i draws with `fold_in(key, i)`,
+    or an (n_chains,) array of such chain keys: a slice of
+    `chain_keys(key, K)` reruns those chains of a K-chain ensemble.
+
     With `checkpoint_dir` set, the loop persists its full state (phase,
     iteration, per-chain sampler states/deltas/stats, collected samples)
     every `checkpoint_every` iterations (default: end of each phase) and
@@ -81,7 +104,7 @@ def run_sharded_chains(key, kernel: Callable, init_states, cfg: RunConfig,
     Aggregate the stats with `aggregate_chain_stats`.
     """
     n_chains = jax.tree.leaves(get_stats_x(init_states))[0].shape[0]
-    keys = chain_keys(key, n_chains)
+    keys = key if key.ndim else chain_keys(key, n_chains)
     burn_keys = jax.vmap(lambda k: jax.random.fold_in(k, 0))(keys)
     sample_keys = jax.vmap(lambda k: jax.random.fold_in(k, 1))(keys)
 
@@ -164,7 +187,7 @@ def run_sharded_chains(key, kernel: Callable, init_states, cfg: RunConfig,
                 seg = _phase_segment(kernel, n_total, adapt, collect, cfg,
                                      get_stats_x, length,
                                      collect_fn=collect_fn)
-                fn = jax.jit(jax.vmap(seg, in_axes=(0, 0, 0, 0, None)))
+                fn = chains_segment(seg, mesh)
                 segs[length] = fn.lower(phase_keys, states, deltas, stats,
                                         jnp.int32(t)).compile()
             jax.block_until_ready((states, deltas, stats))

@@ -3,7 +3,6 @@ checked against the repository's plain references.
 
     python chip_smoke.py             # one card: phases 0-3
     python chip_smoke.py --chips 4   # only the multi-card path (four cards)
-    python chip_smoke.py --rehearse  # the same code on CPU at reduced sizes
 
 Phases (one JSON line each):
   0  the device as JAX reports it, and `nvidia-smi`'s name and power limit;
@@ -311,60 +310,111 @@ def devices_of(x):
 
 
 def multichip(jax, sizes):
+    n_dev = len(jax.devices())
+    check(n_dev >= 4, f"--chips 4 needs four devices, JAX sees {n_dev}")
+    chains(jax, sizes)
+    particles(jax, sizes)
+    time_axis(jax)
+
+
+N_CHAINS, CHAIN_MESH = 8, 4
+
+
+def sv_chains_setup(jax, n):
+    """The SV cSMC chain of the reference experiment (T=250, D=30, N=25,
+    backward sampling): `n` burn-in steps with delta adaptation, then `n`
+    collected samples, from one shared initial state."""
     import jax.numpy as jnp
     from aux_ssm_tpu.experiments import RunConfig
-    from aux_ssm_tpu.experiments.cli import run_maybe_sharded
     from aux_ssm_tpu.experiments.sv import NU, PHI, TAU, RHO
     from aux_ssm_tpu.models import stochastic_volatility as sv
 
-    n_dev = len(jax.devices())
-    check(n_dev >= 4, f"--chips 4 needs four devices, JAX sees {n_dev}")
-
-    # Chains: 8 SV cSMC chains (T=250, D=30, N=25, backward sampling) on a
-    # 4-card chains mesh vs the same 8 chains on one card, on the same
-    # per-chain keys. The two programs are compiled for different per-card
-    # batch shapes, so their f32 rounding differs; a categorical draw that
-    # such a rounding flips sends a chain down another trajectory of the
-    # same law. So each chain's first sample must agree, and the number of
-    # samples each chain agrees for is reported.
     T, D, N = 250, 30, 25
     data_key, init_key, run_key = jax.random.split(jax.random.key(42), 3)
     _, ys = sv.get_data(data_key, NU, PHI, TAU, RHO, D, T)
     x0 = sv.init_x_fn(init_key, ys, NU, PHI, TAU, RHO, 32)
     init, kernel = sv.get_csmc_kernel(ys, NU, PHI, TAU, RHO, N, backward=True)
-    cfg = RunConfig(n_samples=sizes.n_multi, burnin=1,
-                    target_alpha=0.5, delta_init=0.1, verbose=False)
-    out = {}
-    for mesh_n in (4, 0):
-        args = SimpleNamespace(n_chains=8, mesh_chains=mesh_n)
-        tic = time.perf_counter()
-        res, diag = run_maybe_sharded(run_key, kernel, init(x0), cfg, args,
-                                      collect_samples=True,
-                                      delta_init=cfg.delta_init * jnp.ones(T))
-        out[mesh_n] = (res, time.perf_counter() - tic)
-    (r4, t4), (r1, t1) = out[4], out[0]
-    s4, s1 = np.asarray(r4.samples), np.asarray(r1.samples)
-    close = np.abs(s4 - s1).reshape(s4.shape[:2] + (-1,)).max(-1) < 1e-3
-    agree_for = np.where(close.all(1), close.shape[1], np.argmin(close, 1))
-    placed = devices_of(r4.state.x)
-    emit(phase="4chips", path="chains", family="csmc", n_chains=8, mesh=4,
-         T=T, D=D, N=N, n_samples=cfg.n_samples,
-         wall_s_4cards=t4, wall_s_1card=t1, devices=placed,
-         samples_agreeing_per_chain=agree_for.tolist(),
-         max_abs_diff=float(np.abs(s4 - s1).max()),
-         update_rate_4cards=float(np.mean(np.asarray(r4.stats.accept_cum))),
-         update_rate_1card=float(np.mean(np.asarray(r1.stats.accept_cum))))
-    check(placed == sorted(d.id for d in jax.devices()[:4]),
-          f"chains not spread over four cards: {placed}")
-    check(close[:, 0].sum() >= 7,
-          f"sharded chains' first samples differ from one card: {agree_for}")
+    cfg = RunConfig(n_samples=n, burnin=n, target_alpha=0.5, delta_init=0.1,
+                    verbose=False)
+    return SimpleNamespace(kernel=kernel, state=init(x0), cfg=cfg,
+                           key=run_key, delta=cfg.delta_init * jnp.ones(T),
+                           T=T, D=D, N=N)
 
-    particles(jax, sizes)
-    time_axis(jax)
+
+def one_card_chains(jax, setup, group):
+    """The N_CHAINS chains on one device, `group` chains per program, each
+    on its own `fold_in` key: (samples, per-chain update rates)."""
+    import jax.numpy as jnp
+    from aux_ssm_tpu.parallel.chains import chain_keys, run_sharded_chains
+
+    keys = chain_keys(setup.key, N_CHAINS)
+    bc = lambda z: jnp.broadcast_to(z, (group,) + jnp.shape(z))
+    samples, rates = [], []
+    for i in range(0, N_CHAINS, group):
+        res = run_sharded_chains(keys[i:i + group], setup.kernel,
+                                 jax.tree.map(bc, setup.state), setup.cfg,
+                                 collect_samples=True,
+                                 delta_init=bc(setup.delta))
+        samples.append(np.asarray(res.samples))
+        rates.append(np.asarray(res.stats.accept_cum).mean(-1))
+    return np.concatenate(samples), np.concatenate(rates)
+
+
+def chain_diffs(a, b):
+    """Per chain: the largest |a - b| over its samples, and the first
+    sample at which the two differ by more than 1e-3 (None if none)."""
+    d = np.abs(a - b).reshape(a.shape[:2] + (-1,)).max(-1)
+    first = [int(np.argmax(row > 1e-3)) if (row > 1e-3).any() else None
+             for row in d]
+    return d.max(1).tolist(), first
+
+
+def chains(jax, sizes):
+    """8 SV cSMC chains through `--n-chains 8 --mesh-chains 4` (two chains
+    per card) against the same chains on one card, on the same keys.
+
+    The gate compares the sharded run with the one-card run of the same
+    per-card batch (the chains run two to a program): every chain and
+    every sample must agree to 1e-3. Beside it, the witness: the eight
+    chains in one program on one card against the same two-chain programs,
+    which shows what the batch shape alone does to a chain."""
+    from aux_ssm_tpu.experiments.cli import run_maybe_sharded
+
+    setup = sv_chains_setup(jax, sizes.n_multi)
+    args = SimpleNamespace(n_chains=N_CHAINS, mesh_chains=CHAIN_MESH)
+    tic = time.perf_counter()
+    res, _ = run_maybe_sharded(setup.key, setup.kernel, setup.state,
+                               setup.cfg, args, collect_samples=True,
+                               delta_init=setup.delta)
+    wall_sharded = time.perf_counter() - tic
+    sharded = np.asarray(res.samples)
+    per_card = N_CHAINS // CHAIN_MESH
+    tic = time.perf_counter()
+    batched, rates_b = one_card_chains(jax, setup, per_card)
+    wall_batched = time.perf_counter() - tic
+    whole, rates_w = one_card_chains(jax, setup, N_CHAINS)
+    gate_max, gate_first = chain_diffs(sharded, batched)
+    wit_max, wit_first = chain_diffs(whole, batched)
+    placed = devices_of(res.state.x)
+    emit(phase="4chips", path="chains", family="csmc", n_chains=N_CHAINS,
+         mesh=CHAIN_MESH, T=setup.T, D=setup.D, N=setup.N,
+         burnin=setup.cfg.burnin, n_samples=setup.cfg.n_samples,
+         devices=placed, wall_s_sharded=wall_sharded,
+         wall_s_one_card=wall_batched,
+         sharded_vs_one_card_max_abs_diff=gate_max,
+         sharded_vs_one_card_first_diff=gate_first,
+         update_rate_sharded=np.asarray(res.stats.accept_cum).mean(-1).tolist(),
+         update_rate_one_card=rates_b.tolist(),
+         witness_batch8_vs_batch2_max_abs_diff=wit_max,
+         witness_batch8_vs_batch2_first_diff=wit_first,
+         update_rate_batch8=rates_w.tolist())
+    check(placed == sorted(d.id for d in jax.devices()[:CHAIN_MESH]),
+          f"chains not spread over four cards: {placed}")
+    check(all(f is None for f in gate_first),
+          f"sharded chains differ from one card at samples {gate_first}")
 
 
 def particles(jax, sizes):
-    import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
     from aux_ssm_tpu.kernels import csmc
     from aux_ssm_tpu.kernels.csmc_sharded import get_sharded_kernel
@@ -457,22 +507,17 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--chips", type=int, default=1, choices=(1, 4),
                    help="4: run only the multi-card path on four cards")
-    p.add_argument("--rehearse", action="store_true",
-                   help="run on CPU at reduced sizes; prints no result line")
     args = p.parse_args(argv)
     t_start = time.perf_counter()
 
     import jax
     dev = jax.devices()[0]
-    if dev.platform != "gpu" and not args.rehearse:
+    if dev.platform != "gpu":
         sys.exit(f"chip_smoke.py needs a GPU; JAX found {dev.platform!r}")
-    smi = None
-    if not args.rehearse:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            check=True, capture_output=True, text=True).stdout.strip()
-        print(smi, flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(smi, flush=True)
 
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
     from aux_ssm_tpu.config import enable_compile_cache
@@ -487,9 +532,6 @@ def main(argv=None):
         n_sv=200, burn_sv=300,
         N_pit=4096, n_pit=3, grid=3, n_rare=2000, burn_rare=500,
         n_multi=20, T_particles=1024)
-    if args.rehearse:
-        sizes.N_pit, sizes.n_pit = 512, 2
-
     if args.chips == 4:
         multichip(jax, sizes)
     else:
@@ -501,10 +543,9 @@ def main(argv=None):
     emit(total_seconds=time.perf_counter() - t_start)
     if FAILED:
         sys.exit(f"{len(FAILED)} check(s) failed: {FAILED}")
-    if not args.rehearse:
-        print(json.dumps({"ok": True, "device": {
-            "platform": dev.platform, "kind": dev.device_kind,
-            "count": count}}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": dev.platform, "kind": dev.device_kind,
+        "count": count}}), flush=True)
 
 
 if __name__ == "__main__":
